@@ -15,3 +15,8 @@ def _reset_inproc_registry():
     inprocess.reset()
     yield
     inprocess.reset()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skipped where none is present")
