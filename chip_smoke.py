@@ -8,15 +8,20 @@ each of which ends the run with a non-zero exit on failure:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions;
 2. build: compile every kernel from ``src/repro_torch/kernels/csrc``;
-3. kernels: hold each CUDA kernel against its plain PyTorch version on
-   the card at the serving path's full-width shapes and at edge shapes,
-   to a tolerance scaled to the output (shown to reject a dropped
-   tile), and time kernel, plain version and a library yardstick;
-4. parity: full-width Qwen2-1.5B (seeded random weights, fp32 compute)
-   through ``ServeEngine``: greedy tokens from the flash-decode kernels
-   must equal those of the dense attention path, flat and paged;
+3. kernels: hold each CUDA kernel (K1 flash-decode, K2 paged
+   flash-decode, K3 prefill flash attention, K4 RG-LRU scan) against its
+   plain PyTorch version on the card at the serving path's full-width
+   shapes and at edge shapes, to a tolerance scaled to the output (shown
+   to reject a dropped tile, or a scan whose state was reset), and time
+   kernel, plain version and a library yardstick;
+4. parity: full-width Qwen2-1.5B and RecurrentGemma-2B (seeded random
+   weights, fp32 compute) through ``ServeEngine``: greedy tokens through
+   the kernels must equal those of the plain PyTorch path (Qwen2 flat and
+   paged; RecurrentGemma with a prompt longer than its window), and the
+   prefill time per request is timed through both;
 5. serve: ``build_program`` (clients -> batcher -> engine server) on the
-   thread launcher, in the config's own bf16, flat and paged.
+   thread launcher, in each config's own bf16: Qwen2 flat and paged,
+   RecurrentGemma flat.
 
 Prints JSON lines; the one before the last is the ``{"kernels": ...}``
 record, the last ``{"ok": true, "device": {...}}``. Exits non-zero, and
@@ -41,17 +46,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM datasheet figures (NVIDIA): HBM3 bandwidth, and the fp32 rate
-# outside the tensor cores (the kernels do their FMAs in fp32).
+# H100 SXM datasheet figures (NVIDIA): HBM3 bandwidth, and the peak rate
+# for the inputs' type: dense bf16 on the tensor cores, fp32 outside them.
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
+PEAK_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # Kernel against plain version, both accumulating in fp32. The tolerance
 # scales with the output: a bf16 output may differ by a rounding step, so
-# |err| <= 2 bf16 ulps at the largest |plain| value; a float32 output by
-# summation order only. On top, ||err|| / ||plain|| must stay below
-# REL_L2_TOL. At the main shapes a 32-slot tile dropped from one row
-# gives a relative error of ~0.05 and a max |err| ~10x the ulp bound; the
-# kernels phase shows that the check rejects such an output.
+# |err| <= 2 bf16 ulps at the largest |plain| value of its row (one head's
+# output vector, see _compare); a float32 output by summation order only.
+# On top, ||err|| / ||plain|| must stay below REL_L2_TOL. The kernels
+# phase shows that the check rejects a wrong output (a dropped key tile, a
+# scan whose state was reset) and reports by how much.
 BF16_ULPS = 2
 FP32_TOL = 2e-5
 REL_L2_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
@@ -156,9 +161,11 @@ def _device_ms(fn, iters: int = 20) -> dict:
     return out
 
 
-def _bound(bytes_moved: int, flops: int) -> tuple[float, str]:
+def _bound(bytes_moved: int, flops: int, dtype) -> tuple[float, str]:
+    """The least time for the work: bytes over HBM bandwidth against
+    operations over the peak rate for the inputs' type (``dtype``)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -196,24 +203,32 @@ def _paged_inputs(gen, B, H, KV, dh, n, ps, dtype):
 
 def _compare(out, expect) -> dict:
     """Error of ``out`` against the plain ``expect``, beside the output's
-    scale, and the tolerances for ``out``'s dtype (see BF16_ULPS)."""
+    scale, and the tolerances for ``out``'s dtype (see BF16_ULPS). A bf16
+    bound is set row by row over the last dim (one head's output vector):
+    2 ulps at that row's largest |plain| value, so a row of small values
+    is not judged by the largest value elsewhere in the output."""
     e = expect.float()
-    d = out.float() - e
-    scale = e.abs().max().item()
+    d = (out.float() - e).abs()
     if out.dtype == torch.bfloat16:
-        tol = BF16_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7) \
-            if scale > 0 else 0.0
+        row_max = e.abs().amax(dim=-1, keepdim=True)
+        tol = BF16_ULPS * torch.exp2(torch.floor(torch.log2(row_max)) - 7)
     else:
-        tol = FP32_TOL
+        tol = torch.full_like(e, FP32_TOL)
+    # A row whose plain values are all 0 has tol 0: its error must be 0.
+    ratio = torch.where(d == 0, torch.zeros_like(d), d / tol)
+    worst = int(ratio.argmax())
     norm = e.norm().item()
-    return {"max_abs_err": d.abs().max().item(), "tol": tol,
+    return {"max_abs_err": d.max().item(),
+            "err_over_tol": ratio.flatten()[worst].item(),
+            "tol_at_worst": tol.expand_as(e).flatten()[worst].item(),
             "rel_l2_err": d.norm().item() / norm if norm else
             d.norm().item(), "rel_l2_tol": REL_L2_TOL[out.dtype],
-            "out_max_abs": scale, "out_rms": e.pow(2).mean().sqrt().item()}
+            "out_max_abs": e.abs().max().item(),
+            "out_rms": e.pow(2).mean().sqrt().item()}
 
 
 def _within(c: dict) -> bool:
-    return c["max_abs_err"] <= c["tol"] and c["rel_l2_err"] <= c["rel_l2_tol"]
+    return c["err_over_tol"] <= 1 and c["rel_l2_err"] <= c["rel_l2_tol"]
 
 
 def _check(name, out, expect, errors) -> dict:
@@ -232,14 +247,63 @@ def _drop_tile(valid: torch.Tensor) -> torch.Tensor:
     return wrong
 
 
-def _rejects(name, wrong, expect, errors) -> None:
+def _rejects(name, wrong, expect, errors, what="one tile dropped") -> dict:
     """Show the check fails a wrong output: ``wrong`` is the plain version
-    with one 32-slot tile dropped from the mask."""
+    with ``what`` done to it. Returns by how many times each limit is
+    passed."""
     c = _compare(wrong, expect)
-    errors.append({"case": f"{name}: plain with one tile dropped "
-                   "(must be rejected)", **c})
+    errors.append({"case": f"{name}: plain with {what} (must be rejected)",
+                   **c})
     if _within(c):
-        fail(f"{name}: the tolerance accepts an output with a tile dropped")
+        fail(f"{name}: the tolerance accepts an output with {what}")
+    return {"err_over_tol": c["err_over_tol"],
+            "rel_l2_over_tol": c["rel_l2_err"] / c["rel_l2_tol"]}
+
+
+def _decode_case(gen, B, H, KV, dh, L, q_dtype, lengths, errors) -> dict:
+    """K1 against its plain version over a bf16 cache whose row ``b``
+    holds ``lengths[b]`` valid slots: the check, a dropped tile rejected,
+    the bound and the times. ``inputs`` holds (q, k, v, valid)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+
+    q, k, v, valid = _flat_inputs(gen, B, H, KV, dh, L, q_dtype,
+                                  kv_dtype=torch.bfloat16, lengths=lengths)
+    out = dec.decode_attention(q, k, v, valid)
+    expect = ref.decode_attention(q, k, v, valid)
+    name = (f"K1 B={B} H={H} KV={KV} dh={dh} L={L} lengths={lengths} "
+            f"q {q_dtype} kv bf16")
+    c = _check(name, out, expect, errors)
+    margin = _rejects(name, ref.decode_attention(q, k, v, _drop_tile(valid)),
+                      expect, errors)
+    slots = int(valid.sum())
+    nbytes = (slots * KV * dh * 2 * k.element_size() + q.numel()
+              * q.element_size() + valid.numel() + out.numel()
+              * out.element_size())
+    flops = 2 * 2 * H * dh * slots                   # q.k and p.v FMAs
+    bound_ms, bound_by = _bound(nbytes, flops, q_dtype)
+    if q_dtype == k.dtype:
+        mask = valid[:, None, None, :]
+        q4, k4, v4 = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True))
+        library_call = "F.scaled_dot_product_attention(enable_gqa=True)"
+    else:
+        library_ms = None
+        library_call = "none: SDPA takes q, k and v in one dtype"
+    return {**c, "dropped_tile_over_tol": margin,
+            "ms": _time_ms(lambda: dec.decode_attention(q, k, v, valid)),
+            "plain_ms": _time_ms(lambda: ref.decode_attention(q, k, v,
+                                                              valid)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": nbytes, "bound_flops": flops,
+            "library_ms": library_ms, "library_call": library_call,
+            "shape": dict(B=B, H=H, KV=KV, dh=dh, L=L, lengths=lengths,
+                          q_dtype=str(q_dtype).split(".")[1],
+                          kv_dtype="bfloat16"),
+            "inputs": (q, k, v, valid)}
 
 
 def phase_kernels() -> list[dict]:
@@ -278,51 +342,45 @@ def phase_kernels() -> list[dict]:
         if not bool((out[2] == 0).all()):
             fail("paged all-invalid row is not exactly zero")
 
-    # The serving path's full-width shapes: Qwen2-1.5B decode, B=8 rows,
-    # 12 query / 2 KV heads, dh=128, a 2048-slot bf16 cache.
+    # The serving path's full-width shapes. Qwen2-1.5B decode: B=8 rows,
+    # 12 query / 2 KV heads, dh=128, a full 2048-slot bf16 cache.
     B, H, KV, dh, L, ps = 8, 12, 2, 128, 2048, 16
-    item = 2
-    flops = 2 * 2 * B * H * L * dh                   # q.k and p.v FMAs
-    q, k, v, valid = _flat_inputs(gen, B, H, KV, dh, L, torch.bfloat16,
-                                  lengths=[L] * B)
-    out = dec.decode_attention(q, k, v, valid)
-    expect = ref.decode_attention(q, k, v, valid)
-    name = "K1 main B=8 H=12 KV=2 dh=128 L=2048 bf16"
-    c = _check(name, out, expect, errors)
-    _rejects(name, ref.decode_attention(q, k, v, _drop_tile(valid)), expect,
-             errors)
-    nbytes = (int(valid.sum()) * KV * dh * 2 * item + q.numel() * item
-              + valid.numel() + out.numel() * item)
-    bound_ms, bound_by = _bound(nbytes, flops)
-    mask = valid[:, None, None, :]
-    q4, k4, v4 = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    main = _decode_case(gen, B, H, KV, dh, L, torch.bfloat16, [L] * B,
+                        errors)
+    q, k, v, valid = main.pop("inputs")
+    # RecurrentGemma-2B decode over its LOCAL ring: 10 query heads over 1
+    # KV head, dh 256, L = min(context, window) = 2048, rows at different
+    # fill levels; bf16 as served, and fp32 q over the bf16 ring as in the
+    # fp32 parity run.
+    rg = {}
+    for rb, q_dtype in ((1, torch.bfloat16), (3, torch.float32),
+                        (8, torch.bfloat16)):
+        lengths = [L, 1500, 77, L, 2000, 1024, 300, L][:rb]
+        case = _decode_case(gen, rb, 10, 1, 256, L, q_dtype, lengths,
+                            errors)
+        del case["inputs"]
+        rg[f"recurrentgemma-2b LOCAL decode B={rb} q {q_dtype}"] = case
     records.append({
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:86",
-        "launches": None, "launches_by_path": None, **c,
-        "ms": _time_ms(lambda: dec.decode_attention(q, k, v, valid)),
+        "launches": None, "launches_by_path": None, **main,
         "device_ms": _device_ms(lambda: dec.decode_attention(q, k, v,
                                                              valid)),
-        "plain_ms": _time_ms(lambda: ref.decode_attention(q, k, v, valid)),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "bound_bytes": nbytes, "bound_rate": "3.35 TB/s (H100 SXM datasheet)",
-        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask, enable_gqa=True)),
-        "library_call": "F.scaled_dot_product_attention(enable_gqa=True)",
-        "shape": dict(B=B, H=H, KV=KV, dh=dh, L=L, dtype="bfloat16"),
+        "bound_rate": "3.35 TB/s (H100 SXM datasheet)",
+        "other_shapes": rg,
     })
 
-    n = L // ps
+    n, item = L // ps, 2
+    flops = 2 * 2 * B * H * L * dh                   # q.k and p.v FMAs
     q, kp, vp, pages, valid = _paged_inputs(gen, B, H, KV, dh, n, ps,
                                             torch.bfloat16)
     out = dec.paged_decode_attention(q, kp, vp, pages, valid)
     expect = ref.paged_decode_attention(q, kp, vp, pages, valid)
     name = "K2 main B=8 H=12 KV=2 dh=128 n*ps=2048 ps=16 bf16"
     c = _check(name, out, expect, errors)
-    _rejects(name, ref.paged_decode_attention(q, kp, vp, pages,
-                                              _drop_tile(valid)),
-             expect, errors)
+    margin = _rejects(name, ref.paged_decode_attention(
+        q, kp, vp, pages, _drop_tile(valid)), expect, errors)
     # Bytes this data needs: each distinct (page, offset) the valid slots
     # reach, read once, plus the table, the mask, q and the output.
     slots = torch.arange(n * ps, device="cuda")
@@ -330,7 +388,7 @@ def phase_kernels() -> list[dict]:
     distinct = int(torch.unique(phys[valid]).numel())
     nbytes = (distinct * KV * dh * 2 * item + pages.numel() * 4
               + valid.numel() + q.numel() * item + out.numel() * item)
-    bound_ms, bound_by = _bound(nbytes, flops)
+    bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16)
     kg = kp[pages.long()].reshape(B, n * ps, KV, dh).transpose(1, 2)
     vg = vp[pages.long()].reshape(B, n * ps, KV, dh).transpose(1, 2)
     q4, mask = q[:, :, None, :], valid[:, None, None, :]
@@ -339,6 +397,7 @@ def phase_kernels() -> list[dict]:
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:168",
         "launches": None, "launches_by_path": None, **c,
+        "dropped_tile_over_tol": margin,
         "ms": _time_ms(lambda: dec.paged_decode_attention(
             q, kp, vp, pages, valid)),
         "device_ms": _device_ms(lambda: dec.paged_decode_attention(
@@ -354,25 +413,189 @@ def phase_kernels() -> list[dict]:
         "shape": dict(B=B, H=H, KV=KV, dh=dh, n=n, ps=ps, P=B * n + 1,
                       dtype="bfloat16"),
     })
+    records.append(_flash_attention_record(gen, errors))
+    records.append(_rglru_scan_record(gen, errors))
     emit({"phase": "kernels", "checks": errors})
     return records
 
 
+def _flash_case(gen, B, Sq, Sk, H, KV, dh, causal, window, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q = torch.randn((B, Sq, H, dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KV, dh), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KV, dh), generator=gen, device="cuda").to(dtype)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    return (q, k, v), out, ref.flash_attention(q, k, v, causal, window)
+
+
+def _flash_attention_record(gen, errors) -> dict:
+    """K3: edge shapes, then the prefill path's two full-width shapes —
+    Qwen2-1.5B (causal, 12/2 heads, dh 128) and RecurrentGemma-2B's LOCAL
+    layers (window 2048, 10/1 heads, dh 256) — in bf16. The record's
+    numbers are RecurrentGemma's; Qwen2's stand under ``other_shapes``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    edges = [  # B, Sq, Sk, H, KV, dh, causal, window, dtype
+        (2, 1000, 1000, 8, 2, 128, True, None, torch.bfloat16),
+        (2, 128, 640, 8, 1, 64, True, 300, torch.bfloat16),
+        (1, 333, 333, 4, 4, 64, False, None, torch.bfloat16),
+        (3, 200, 200, 4, 2, 16, True, 50, torch.float32),
+        (1, 500, 777, 6, 3, 64, True, None, torch.float32),
+        (1, 260, 260, 2, 1, 256, False, None, torch.float32),
+    ]
+    for B, Sq, Sk, H, KV, dh, causal, window, dtype in edges:
+        _, out, expect = _flash_case(gen, B, Sq, Sk, H, KV, dh, causal,
+                                     window, dtype)
+        _check(f"K3 B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} dh={dh} "
+               f"causal={causal} window={window} {dtype}", out, expect,
+               errors)
+
+    shapes = {}
+    for label, (B, S, H, KV, dh, window) in {
+            "qwen2-1.5b prefill": (1, 1536, 12, 2, 128, None),
+            "recurrentgemma-2b LOCAL prefill": (1, 3072, 10, 1, 256, 2048),
+    }.items():
+        (q, k, v), out, expect = _flash_case(gen, B, S, S, H, KV, dh, True,
+                                             window, torch.bfloat16)
+        name = (f"K3 main {label} B={B} S={S} H={H} KV={KV} dh={dh} "
+                f"window={window} bf16")
+        c = _check(name, out, expect, errors)
+        ok = ref.visible(S, S, True, window, q.device)
+        dropped = ok.clone()
+        dropped[:, S // 2:S // 2 + 64] = False
+        margin = _rejects(name, ref.masked_attention(q, k, v, dropped),
+                          expect, errors, "one 64-key tile dropped")
+        pairs = int(ok.sum())
+        flops = 4 * B * H * pairs * dh                # q.k and p.v FMAs
+        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
+        bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib_call = "F.scaled_dot_product_attention(is_causal, enable_gqa)"
+        else:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=ok, enable_gqa=True)
+            lib_call = ("F.scaled_dot_product_attention(attn_mask=window "
+                        "band, enable_gqa)")
+        shapes[label] = {
+            **c, "dropped_tile_over_tol": margin,
+            "ms": _time_ms(lambda: fa.flash_attention(
+                q, k, v, causal=True, window=window)),
+            "plain_ms": _time_ms(lambda: ref.flash_attention(
+                q, k, v, True, window), iters=10),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": nbytes, "bound_flops": flops,
+            "visible_pairs_per_head": pairs,
+            "library_ms": _time_ms(lib), "library_call": lib_call,
+            "shape": dict(B=B, S=S, H=H, KV=KV, dh=dh, window=window,
+                          causal=True, dtype="bfloat16")}
+    main = shapes.pop("recurrentgemma-2b LOCAL prefill")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:121",
+            "launches": None, "launches_by_path": None, **main,
+            "bound_rate": "989 TFLOP/s bf16, 3.35 TB/s (H100 SXM datasheet)",
+            "other_shapes": shapes}
+
+
+def _rglru_inputs(gen, B, S, W, dtype):
+    a = (0.8 + 0.199 * torch.rand((B, S, W), generator=gen,
+                                  device="cuda")).to(dtype)
+    x = torch.randn((B, S, W), generator=gen, device="cuda").to(dtype)
+    h0 = torch.randn((B, W), generator=gen, device="cuda")
+    return a, x, h0
+
+
+def _rglru_scan_record(gen, errors) -> dict:
+    """K4 against its plain loop: ragged S and W, bf16 a/x, and the main
+    shape (RecurrentGemma-2B prefill: S=3072, W=2560, fp32 a/x as the
+    gates hand them over, non-zero h0); y and h_last both checked."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+
+    for B, S, W, dtype in [(3, 1001, 2501, torch.float32),
+                           (2, 777, 2560, torch.bfloat16),
+                           (1, 3072, 2560, torch.bfloat16)]:
+        a, x, h0 = _rglru_inputs(gen, B, S, W, dtype)
+        (y, h), (ye, he) = rg.rglru_scan(a, x, h0), ref.rglru_scan(a, x, h0)
+        name = f"K4 B={B} S={S} W={W} {dtype}"
+        _check(f"{name} y", y, ye, errors)
+        _check(f"{name} h_last", h, he, errors)
+
+    B, S, W = 1, 3072, 2560
+    a, x, h0 = _rglru_inputs(gen, B, S, W, torch.float32)
+    (y, h), (ye, he) = rg.rglru_scan(a, x, h0), ref.rglru_scan(a, x, h0)
+    name = f"K4 main B={B} S={S} W={W} fp32"
+    c = _check(f"{name} y", y, ye, errors)
+    _check(f"{name} h_last", h, he, errors)
+    half = S // 2
+    y1, _ = ref.rglru_scan(a[:, :half], x[:, :half], h0)
+    y2, _ = ref.rglru_scan(a[:, half:].contiguous(), x[:, half:].contiguous(),
+                           torch.zeros_like(h0))
+    margin = _rejects(f"{name} y", torch.cat([y1, y2], dim=1), ye, errors,
+                      "h reset to 0 at S/2")
+    nbytes = (a.numel() + x.numel() + y.numel()) * 4 + (h0.numel()
+                                                        + h.numel()) * 4
+    bound_ms, bound_by = _bound(nbytes, 2 * a.numel(), torch.float32)
+    return {"name": "rglru_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru_scan.py:63",
+            "launches": None, "launches_by_path": None, **c,
+            "h_reset_over_tol": margin,
+            "ms": _time_ms(lambda: rg.rglru_scan(a, x, h0)),
+            "plain_ms": _time_ms(lambda: ref.rglru_scan(a, x, h0), iters=5,
+                                 warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": nbytes,
+            "bound_rate": "3.35 TB/s (H100 SXM datasheet)",
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes a "
+                            "linear recurrence",
+            "shape": dict(B=B, S=S, W=W, dtype="float32", h0="randn")}
+
+
 # ---------------------------------------------------------------------------
-# 4. full-width parity: flash-decode kernels against dense attention
+# 4. full-width parity: the kernels against plain PyTorch, through the engine
 # ---------------------------------------------------------------------------
 
 PARITY_TIE = 1e-3        # top-2 margin below which a step is a near-tie
+KERNEL_NAMES = ("decode_attention", "paged_decode_attention",
+                "flash_attention", "rglru_scan")
+
+
+def _counter_modules():
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import rglru_scan
+    return (decode_attention, flash_attention, rglru_scan)
+
+
+def _reset_launches() -> None:
+    for mod in _counter_modules():
+        mod.reset_launches()
+
+
+def _read_launches() -> dict:
+    run = {}
+    for mod in _counter_modules():
+        run.update(mod.launches)
+    return {name: run[name] for name in KERNEL_NAMES}
 
 
 def _drive(cfg, params, prompts, **kw) -> tuple:
     """Serve ``prompts`` through one ServeEngine on the card. Returns the
     outputs, the kernel launches of exactly this run and its prefix-cache
     hits."""
-    from repro_torch.kernels import decode_attention as dec
     from repro_torch.serve.engine import ServeEngine
     eng = ServeEngine(cfg, params, device="cuda", **kw)
-    dec.reset_launches()
+    _reset_launches()
     futs = [eng.submit(p) for p in prompts]
     steps = 0
     while not all(f.done() for f in futs):
@@ -381,7 +604,7 @@ def _drive(cfg, params, prompts, **kw) -> tuple:
         if steps > 20000:
             fail("engine made no progress")
     torch.cuda.synchronize()
-    run = dict(dec.launches)
+    run = _read_launches()
     outs = [f.result() for f in futs]
     hits = eng.stats().get("prefix_cache", {}).get("hits", 0)
     eng.stop()
@@ -389,12 +612,12 @@ def _drive(cfg, params, prompts, **kw) -> tuple:
 
 
 def _step_logits(cfg, params, seq, impl: str, context_len: int):
-    """Logits predicting the token after ``seq`` through one decode step
-    (attention leaf ``impl``) over the prefill state of ``seq[:-1]``."""
+    """Logits predicting the token after ``seq`` through the prefill of
+    ``seq[:-1]`` and one decode step, both on route ``impl``."""
     from repro_torch.models import transformer
     toks = torch.as_tensor(seq, device="cuda")[None]
     _, state = transformer.prefill(cfg, params, tokens=toks[:, :-1],
-                                   context_len=context_len)
+                                   context_len=context_len, impl=impl)
     logits, _ = transformer.decode_step(cfg, params, state, toks[:, -1:],
                                         len(seq) - 1, attn_impl=impl)
     return logits[0, 0].float()
@@ -428,16 +651,31 @@ def _compare_tokens(cfg, params, prompts, ref, got, max_new, context_len,
     return ties
 
 
-def phase_parity() -> dict:
-    """Returns each flash run's launches, by path name."""
-    import dataclasses
-
-    from repro_torch import configs
+def _prefill_ms(cfg, params, prompts, context_len: int) -> list[dict]:
+    """Prefill time per request, through the kernels ("flash") and plain
+    PyTorch ("dense"): host clock around one B=1 prefill ending in a
+    synchronize, median of 3 after a warm-up, in turns."""
     from repro_torch.models import transformer
+    rows = []
+    for p in prompts:
+        toks = torch.as_tensor(p, device="cuda")[None]
+        times = {"flash": [], "dense": []}
+        for rep in range(4):
+            for impl in ("flash", "dense") if rep % 2 else ("dense", "flash"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                transformer.prefill(cfg, params, tokens=toks,
+                                    context_len=context_len, impl=impl)
+                torch.cuda.synchronize()
+                if rep:
+                    times[impl].append((time.perf_counter() - t0) * 1e3)
+        rows.append({"prompt_len": len(p),
+                     **{f"{impl}_ms": sorted(ts)[1]
+                        for impl, ts in times.items()}})
+    return rows
 
-    cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
-                              compute_dtype="float32")
-    params = transformer.init_params(cfg, seed=0, device="cuda")
+
+def _parity_qwen2(cfg, params) -> tuple[dict, dict]:
     ctx, max_new = 2048, 16
     rng = np.random.default_rng(0)
     shared = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
@@ -447,7 +685,6 @@ def phase_parity() -> dict:
         0, cfg.vocab_size, n).astype(np.int32)]) for n in (100, 300, 1000)]
     common = dict(num_slots=4, context_len=ctx, max_new=max_new)
     paged = dict(common, page_size=16, prefill_chunk=256)
-    t0 = time.perf_counter()
     runs, hits = {}, {}
     ref_flat, _, _ = _drive(cfg, params, prompts, decode_impl="dense",
                             **common)
@@ -467,18 +704,61 @@ def phase_parity() -> dict:
                  "hit")
         ties[label] = _compare_tokens(cfg, params, prompts, ref_paged, outs,
                                       max_new, ctx, label)
-    emit({"phase": "parity", "config": "qwen2-1.5b full width, fp32 compute,"
-          " seeded random weights", "requests": len(prompts),
-          "prompt_lens": [len(p) for p in prompts], "max_new": max_new,
-          "near_ties": ties, "launches": runs, "prefix_hits": hits,
-          "seconds": time.perf_counter() - t0})
     if not runs["flat sync=8"]["decode_attention"]:
-        fail("flat flash run launched no decode_attention kernel")
+        fail("qwen2 flat flash run launched no decode_attention kernel")
+    if not runs["flat sync=8"]["flash_attention"]:
+        fail("qwen2 flat flash run launched no flash_attention kernel")
     if not runs["paged ps=16 chunk=256 sync=1"]["paged_decode_attention"]:
         fail("paged sync=1 run launched no paged_decode_attention kernel")
-    del params
-    torch.cuda.empty_cache()
-    return {f"parity {label}": run for label, run in runs.items()}
+    info = {"prompt_lens": [len(p) for p in prompts], "max_new": max_new,
+            "context_len": ctx, "near_ties": ties, "prefix_hits": hits,
+            "prefill_ms_per_request": _prefill_ms(cfg, params, prompts[:3],
+                                                  ctx)}
+    return info, runs
+
+
+def _parity_recurrentgemma(cfg, params) -> tuple[dict, dict]:
+    ctx, max_new = 4096, 16
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (512, 1536, 3072)]          # 3072 > window 2048
+    common = dict(num_slots=3, context_len=ctx, max_new=max_new)
+    ref, _, _ = _drive(cfg, params, prompts, decode_impl="dense", **common)
+    outs, run, _ = _drive(cfg, params, prompts, decode_impl="flash", **common)
+    ties = _compare_tokens(cfg, params, prompts, ref, outs, max_new, ctx,
+                           "recurrentgemma")
+    for name in ("decode_attention", "flash_attention", "rglru_scan"):
+        if not run[name]:
+            fail(f"recurrentgemma flash run launched no {name} kernel")
+    info = {"prompt_lens": [len(p) for p in prompts], "max_new": max_new,
+            "context_len": ctx, "window": cfg.window,
+            "near_ties": {"flat sync=8": ties},
+            "prefill_ms_per_request": _prefill_ms(cfg, params, prompts, ctx)}
+    return info, {"flat sync=8": run}
+
+
+def phase_parity(device_line: str) -> dict:
+    """Returns each flash run's launches, by path name."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    paths = {}
+    for arch, drive in (("qwen2-1.5b", _parity_qwen2),
+                        ("recurrentgemma-2b", _parity_recurrentgemma)):
+        cfg = dataclasses.replace(configs.get(arch), compute_dtype="float32")
+        t0 = time.perf_counter()
+        params = transformer.init_params(cfg, seed=0, device="cuda")
+        info, runs = drive(cfg, params)
+        emit({"phase": "parity", "config": f"{arch} full width, fp32 "
+              "compute, seeded random weights", **info, "launches": runs,
+              "seconds": time.perf_counter() - t0, "device": device_line})
+        paths.update({f"parity {arch} {label}": run
+                      for label, run in runs.items()})
+        del params
+        torch.cuda.empty_cache()
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -490,42 +770,50 @@ def phase_serve(device_line: str) -> dict:
     import tempfile
 
     from repro_torch import configs, core as lp
-    from repro_torch.kernels import decode_attention as dec
     from repro_torch.launch import serve
 
-    cfg = configs.get("qwen2-1.5b")
-    n_clients, per_client, plen, max_new = 3, 4, 128, 32
     runs = {}
-    for page_size in (None, 16):
+    for arch, page_size, per_client, kernels in (
+            ("qwen2-1.5b", None, 4, ("decode_attention", "flash_attention")),
+            ("qwen2-1.5b", 16, 4, ("decode_attention", "flash_attention")),
+            ("recurrentgemma-2b", None, 2,
+             ("decode_attention", "flash_attention", "rglru_scan"))):
+        cfg = configs.get(arch)
+        n_clients, plen, max_new = 3, 128, 32
         with tempfile.TemporaryDirectory() as tmp:
             summary_path = os.path.join(tmp, "meter.json")
             program = serve.build_program(
                 cfg, num_clients=n_clients, requests_per_client=per_client,
                 prompt_len=plen, max_new=max_new, page_size=page_size,
                 meter_json=summary_path)
-            dec.reset_launches()
+            _reset_launches()
             t0 = time.perf_counter()
             lp.launch_and_wait(program, timeout_s=600)
             wall = time.perf_counter() - t0
-            run = dict(dec.launches)
+            run = _read_launches()
             with open(summary_path) as f:
                 summary = json.load(f)
-        runs["serve paged ps=16" if page_size else "serve flat"] = run
+        label = f"serve {arch} " + (f"paged ps={page_size}" if page_size
+                                    else "flat")
+        runs[label] = run
         total = n_clients * per_client
         if summary["count"] != total:
-            fail(f"served {summary['count']} of {total} requests")
+            fail(f"{label}: served {summary['count']} of {total} requests")
         if summary["out_lens"] != [plen + max_new] * total:
-            fail(f"wrong output lengths {summary['out_lens']}")
-        if not run["decode_attention"]:
-            fail("serve run launched no decode_attention kernel")
-        emit({"phase": "serve", "paged": page_size, "config":
-              "qwen2-1.5b full width, bf16, seeded random weights",
+            fail(f"{label}: wrong output lengths {summary['out_lens']}")
+        for name in kernels:
+            if not run[name]:
+                fail(f"{label} launched no {name} kernel")
+        emit({"phase": "serve", "config": f"{arch} full width, bf16, seeded "
+              "random weights", "paged": page_size,
               "requests": summary["count"], "prompt_len": plen,
               "max_new": max_new, "p50_ms": summary["p50_ms"],
               "p95_ms": summary["p95_ms"], "mean_ms": summary["mean_ms"],
               "wall_s": wall, "generated_tokens_per_s_wall":
               total * max_new / wall, "launches": run,
               "device": device_line})
+        del program
+        torch.cuda.empty_cache()
     return runs
 
 
@@ -547,7 +835,8 @@ def main(argv=None) -> int:
     # Launches on the main path: the engine runs of phases 4-5, each
     # path's counters reset just before its run and read just after.
     # ``launches`` is their sum; ``launches_by_path`` splits it.
-    paths = {**phase_parity(), **phase_serve(env["nvidia_smi"])}
+    paths = {**phase_parity(env["nvidia_smi"]),
+             **phase_serve(env["nvidia_smi"])}
     for r in records:
         r["launches_by_path"] = {path: run[r["name"]]
                                  for path, run in paths.items()}

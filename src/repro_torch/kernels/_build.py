@@ -2,7 +2,8 @@
 
 Every ``*.cu`` under ``csrc/`` compiles, at first use, into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds). The output lives under ``build/repro_torch/<hash>/`` at the
+seconds): one ``nvcc -c`` per source, all started together, then one
+link. The output lives under ``build/repro_torch/<hash>/`` at the
 root of the checkout, keyed on a hash of the sources and the compiler
 flags, so changed sources rebuild and unchanged ones load straight away.
 A lock (in-process and on the file system) serializes the first build:
@@ -10,6 +11,10 @@ the engine thread and the main thread may both reach it.
 
 Only the sources in the repository are compiled; there is no
 prebuilt-kernel package and no fallback when the build fails.
+
+The conventions every wrapper shares with the C interface live here too:
+dtype codes, the return code check, and the refusal to hand autograd a
+tensor whose gradient the kernels do not compute.
 """
 
 from __future__ import annotations
@@ -25,11 +30,17 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+# The C interface's dtype codes.
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -69,20 +80,58 @@ def library_path() -> Path:
     return BUILD_ROOT / _digest() / LIB_NAME
 
 
+def _run(procs: list) -> str:
+    """Wait for every (command, Popen), then raise for the first that
+    failed: no compiler outlives the build."""
+    done = []
+    for cmd, proc in procs:
+        out = "".join(proc.communicate())
+        done.append((cmd, proc.returncode, out))
+    for cmd, rc, out in done:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+    return "".join(out for _, _, out in done)
+
+
+def _spawn(cmd: list) -> tuple:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 def _compile(out: Path) -> None:
     global build_seconds, build_log
-    srcs = [str(p) for p in _sources() if p.suffix == ".cu"]
-    tmp = out.with_suffix(f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *srcs]
+    tag = f".tmp{os.getpid()}"
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [out.parent / f"{p.stem}{tag}.o" for p in srcs]
+    tmp = out.with_suffix(tag)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    log = _run([_spawn([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c",
+                        "-o", str(o), str(p)])
+                for p, o in zip(srcs, objs)])
+    log += _run([_spawn([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                         *map(str, objs)])])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)                    # atomic: readers never see half
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = log
     (out.parent / "nvcc.log").write_text(build_log)
+
+
+def check_rc(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels have no backward yet (training is ROADMAP.md Q6): an
+    output built by them would carry no gradient, so raise instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward pass yet (ROADMAP.md Q6); call it "
+            "under torch.no_grad() or on inputs that need no gradient")
 
 
 def load() -> ctypes.CDLL:
@@ -123,3 +172,39 @@ def _bind(lib: ctypes.CDLL) -> None:
         I, I, F,                      # split_len, n_splits, sm_scale
         P]                            # stream
     lib.repro_paged_decode_attention.restype = I
+    lib.repro_flash_attention.argtypes = [
+        I, I,                         # dtype, dh
+        P, P, P, P,                   # q, k, v, out
+        I, I, I, I, I,                # B, Sq, Sk, H, KV
+        I, I, F,                      # causal, window, sm_scale
+        P]                            # stream
+    lib.repro_flash_attention.restype = I
+    lib.repro_rglru_scan.argtypes = [
+        I,                            # dtype
+        P, P, P, P, P,                # a, x, h0, y, h_last
+        I, I, I,                      # B, S, W
+        P]                            # stream
+    lib.repro_rglru_scan.restype = I
+
+
+if __name__ == "__main__":
+    # python -m repro_torch.kernels._build: time the build as load() runs
+    # it (one nvcc per source, all at once, then a link) against a single
+    # nvcc call over every source, in turns (single, parallel, parallel,
+    # single), each into a fresh directory under build/.
+    import json
+    srcs = [str(p) for p in _sources() if p.suffix == ".cu"]
+    times: dict = {"single": [], "parallel": []}
+    for i, how in enumerate(("single", "parallel", "parallel", "single")):
+        out = BUILD_ROOT / "timing" / f"{how}{i}" / LIB_NAME
+        shutil.rmtree(out.parent, ignore_errors=True)
+        out.parent.mkdir(parents=True)
+        t0 = time.perf_counter()
+        if how == "parallel":
+            _compile(out)
+        else:
+            _run([_spawn([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-shared",
+                          "-o", str(out), *srcs])])
+        times[how].append(time.perf_counter() - t0)
+    shutil.rmtree(BUILD_ROOT / "timing")
+    print(json.dumps({"build_seconds": times, "sources": len(srcs)}))

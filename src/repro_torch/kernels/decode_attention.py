@@ -27,7 +27,6 @@ launches = {"decode_attention": 0, "paged_decode_attention": 0}
 
 TILE = 32                      # cache slots per tile (TILE in the .cu)
 HEAD_DIMS = (16, 32, 64, 128, 256)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Blocks per SM the split aims for: enough resident warps to keep loads
 # in flight on every SM.
 _BLOCKS_PER_SM = 4
@@ -61,7 +60,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"got one on {t.device}")
         if not t.is_contiguous():
             raise ValueError("decode-attention operands must be contiguous")
-    if q.dtype not in _DTYPE_CODE or k.dtype not in _DTYPE_CODE:
+    if q.dtype not in _build.DTYPE_CODE or k.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"q/k/v must be float32 or bfloat16, got "
                         f"{q.dtype}/{k.dtype}")
     if v.dtype != k.dtype or v.shape != k.shape:
@@ -92,11 +91,6 @@ def _scratch(q: torch.Tensor, n_splits: int):
             torch.empty((B, H, n_splits, dh), **f32))
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor,
                      sm_scale: Optional[float] = None) -> torch.Tensor:
@@ -116,12 +110,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out, m, l, acc = _scratch(q, n_splits)
     lib = _build.load()
     rc = lib.repro_decode_attention(
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], dh,
+        _build.DTYPE_CODE[q.dtype], _build.DTYPE_CODE[k.dtype], dh,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         out.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
         B, H, KV, L, split_len, n_splits, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "decode_attention")
+    _build.check_rc(rc, "decode_attention")
     launches["decode_attention"] += 1
     return out
 
@@ -151,12 +145,12 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out, m, l, acc = _scratch(q, n_splits)
     lib = _build.load()
     rc = lib.repro_paged_decode_attention(
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], dh,
+        _build.DTYPE_CODE[q.dtype], _build.DTYPE_CODE[k_pages.dtype], dh,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         pages.data_ptr(), valid.data_ptr(),
         out.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
         B, H, KV, ps, n, split_len, n_splits, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "paged_decode_attention")
+    _build.check_rc(rc, "paged_decode_attention")
     launches["paged_decode_attention"] += 1
     return out

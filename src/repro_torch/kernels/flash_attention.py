@@ -1,0 +1,96 @@
+"""Wrapper for the prefill flash-attention CUDA kernel
+(``csrc/flash_attention.cu``).
+
+The wrapper checks device, dtype, shape, contiguity and alignment,
+allocates the output with ``torch.empty``, launches on the current stream
+and counts the launch. A tensor on the CPU goes to the plain version in
+``ref.py``; a CUDA tensor launches the kernel or raises — there is no
+fallback. The kernel has no backward pass yet, so a call that needs a
+gradient raises on every device.
+
+The kernel replaces the Pallas ``_flash_kernel`` of
+``repro/kernels/flash_attention.py``; unlike it, any Sq and Sk are taken
+(ragged tiles are masked).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+# Launches since the last reset: a plain integer, bumped where the kernel
+# launches and nowhere else.
+launches = {"flash_attention": 0}
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def reset_launches() -> None:
+    launches["flash_attention"] = 0
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool, window: Optional[int]) -> None:
+    for t in (q, k, v):
+        if t.device != q.device:
+            raise ValueError(f"all operands must be on {q.device}, "
+                             f"got one on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("flash-attention operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("flash-attention operands must be 16-byte "
+                             "aligned")
+    if q.dtype not in _build.DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share one dtype, float32 or bfloat16; "
+                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q [B,Sq,H,dh], k/v [B,Sk,KV,dh] expected; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != dh:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    if KV < 1 or H % KV:
+        raise ValueError(f"{H} query heads over {KV} KV heads: the group "
+                         "must divide evenly")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if causal and Sq > Sk:
+        raise ValueError(f"causal attention with more queries ({Sq}) than "
+                         f"keys ({Sk}) leaves rows with nothing to attend")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q [B,Sq,H,dh], k/v [B,Sk,KV,dh] -> [B,Sq,H,dh] in q's dtype;
+    queries right-aligned when Sq < Sk (see ``ref.flash_attention``)."""
+    _build.refuse_grad("flash_attention", q, k, v)
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal, window, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for {q.device}")
+    _check(q, k, v, causal, window)
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    sm_scale = sm_scale if sm_scale is not None else dh ** -0.5
+    out = torch.empty_like(q)
+    if Sq == 0 or Sk == 0 or B == 0:
+        return out.zero_()
+    lib = _build.load()
+    rc = lib.repro_flash_attention(
+        _build.DTYPE_CODE[q.dtype], dh, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, KV, int(causal),
+        int(window or 0), float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_rc(rc, "flash_attention")
+    launches["flash_attention"] += 1
+    return out

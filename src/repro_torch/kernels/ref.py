@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the decode-attention kernels (the contract).
+"""Plain PyTorch versions of the port's kernels (the contract).
 
 Each function mirrors its kernel's exact semantics (masking, all-invalid
 rows, accumulation dtypes) with straightforward tensor code, as
@@ -63,3 +63,64 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     k = k_pages[idx].reshape(B, n * ps, KV, dh)
     v = v_pages[idx].reshape(B, n * ps, KV, dh)
     return decode_attention(q, k, v, valid, sm_scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Full-sequence GQA attention, the prefill kernel's contract.
+
+    q [B,Sq,H,dh], k/v [B,Sk,KV,dh] (H % KV == 0) -> [B,Sq,H,dh] in q's
+    dtype. Queries are right-aligned when Sq < Sk (query i sits at
+    position i + Sk - Sq); logits are fp32 and masked with the finite
+    NEG_INF; ``window`` keeps keys with 0 <= q_pos - k_pos < window.
+    """
+    ok = visible(q.shape[1], k.shape[1], causal, window, q.device)
+    return masked_attention(q, k, v, ok, sm_scale)
+
+
+def visible(Sq: int, Sk: int, causal: bool, window: Optional[int],
+            device=None) -> torch.Tensor:
+    """[Sq, Sk] bool: the keys each right-aligned query of
+    ``flash_attention`` sees."""
+    q_pos = torch.arange(Sq, device=device) + (Sk - Sq)
+    k_pos = torch.arange(Sk, device=device)
+    diff = q_pos[:, None] - k_pos[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= diff >= 0
+    if window is not None:
+        ok &= diff < window
+    return ok
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     ok: torch.Tensor,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """``flash_attention`` over an explicit [Sq, Sk] bool mask ``ok``."""
+    H, dh = q.shape[2], q.shape[3]
+    KV = k.shape[2]
+    sm_scale = sm_scale if sm_scale is not None else dh ** -0.5
+    if KV != H:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    logits = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * sm_scale
+    logits = logits.masked_fill(~ok, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", w, v.float())
+    return out.to(q.dtype)
+
+
+def rglru_scan(a: torch.Tensor, x: torch.Tensor,
+               h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential linear recurrence h_t = a_t h_{t-1} + x_t, in fp32.
+
+    a/x [B,S,W], h0 [B,W] -> (y [B,S,W] in x's dtype, h_last [B,W] fp32).
+    """
+    af, xf = a.float(), x.float()
+    h = h0.float()
+    ys = torch.empty(af.shape, dtype=torch.float32, device=x.device)
+    for t in range(x.shape[1]):
+        h = af[:, t] * h + xf[:, t]
+        ys[:, t] = h
+    return ys.to(x.dtype), h

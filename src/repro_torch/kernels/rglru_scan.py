@@ -1,0 +1,69 @@
+"""Wrapper for the RG-LRU linear-scan CUDA kernel (``csrc/rglru_scan.cu``).
+
+The wrapper checks device, dtype, shape and contiguity, allocates y and
+h_last with ``torch.empty``, launches on the current stream and counts
+the launch. A tensor on the CPU goes to the plain version in ``ref.py``;
+a CUDA tensor launches the kernel or raises — there is no fallback. The
+kernel has no backward pass yet, so a call that needs a gradient raises.
+
+The kernel replaces the Pallas ``_rglru_kernel`` of
+``repro/kernels/rglru_scan.py``; unlike it, any S and W are taken.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+# Launches since the last reset: a plain integer, bumped where the kernel
+# launches and nowhere else.
+launches = {"rglru_scan": 0}
+
+
+def reset_launches() -> None:
+    launches["rglru_scan"] = 0
+
+
+def _check(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor) -> None:
+    for t in (a, x, h0):
+        if t.device != x.device:
+            raise ValueError(f"all operands must be on {x.device}, "
+                             f"got one on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("rglru-scan operands must be contiguous")
+    if x.dtype not in _build.DTYPE_CODE or a.dtype != x.dtype:
+        raise TypeError(f"a and x must share one dtype, float32 or "
+                        f"bfloat16; got {a.dtype}/{x.dtype}")
+    if h0.dtype != torch.float32:
+        raise TypeError(f"h0 must be float32, got {h0.dtype}")
+    if x.dim() != 3 or a.shape != x.shape \
+            or h0.shape != (x.shape[0], x.shape[2]):
+        raise ValueError(f"a/x [B,S,W] and h0 [B,W] expected; got "
+                         f"{tuple(a.shape)}, {tuple(x.shape)}, "
+                         f"{tuple(h0.shape)}")
+
+
+def rglru_scan(a: torch.Tensor, x: torch.Tensor,
+               h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """a/x [B,S,W], h0 [B,W] fp32 -> (y [B,S,W] in x's dtype, h_last
+    [B,W] fp32), h_t = a_t * h_{t-1} + x_t."""
+    _build.refuse_grad("rglru_scan", a, x, h0)
+    if x.device.type == "cpu":
+        return ref.rglru_scan(a, x, h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"no rglru-scan kernel for {x.device}")
+    _check(a, x, h0)
+    B, S, W = x.shape
+    y = torch.empty_like(x)
+    h_last = torch.empty((B, W), dtype=torch.float32, device=x.device)
+    if B == 0 or W == 0:
+        return y, h_last
+    lib = _build.load()
+    rc = lib.repro_rglru_scan(
+        _build.DTYPE_CODE[x.dtype], a.data_ptr(), x.data_ptr(),
+        h0.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, S, W,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_rc(rc, "rglru_scan")
+    launches["rglru_scan"] += 1
+    return y, h_last

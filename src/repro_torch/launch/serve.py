@@ -14,6 +14,8 @@ injection) and checkpoint loading are later slices of the port and raise
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --device cpu
 """
 
 from __future__ import annotations

@@ -1,16 +1,17 @@
 """GQA self-attention (global / sliding-window / local), the single-token
 decode path against a KV cache (flat ring or paged pool), and chunked
-prefill — the port of ``repro.models.attention`` for attention-only
-stacks.
+prefill — the port of ``repro.models.attention`` for attention stacks.
 
 The plain attention matrix products stay ``torch.einsum`` (the JAX
-package leaves them to XLA). Decode attention's leaf is switchable:
-``"flash"`` hands q and the ring ``valid`` mask to the flash-decode CUDA
-kernels' wrappers in ``kernels.decode_attention`` (which run the plain
-version only for a CPU tensor);
-``"dense"`` is the grouped einsum ``_sdpa_grouped``; ``"auto"`` means
-flash on a CUDA device — the counterpart of "flash on TPU" in the JAX
-package.
+package leaves them to XLA). Prefill and decode attention take an
+``impl`` leaf switch: ``"flash"`` hands q, K/V and the mask to the CUDA
+kernels' wrappers — ``kernels.flash_attention`` for a whole sequence,
+``kernels.decode_attention`` for one token against the ring's ``valid``
+mask — which run their plain version only for a CPU tensor; ``"dense"``
+is the einsum path (``_sdpa`` / ``_sdpa_grouped``), the parity
+reference; ``"auto"`` means flash on a CUDA device — the counterpart of
+"flash on TPU" in the JAX package. Softcapped configs always take the
+dense path (the kernels have no softcap).
 
 Cache updates are written in place (one slot per row with an indexed
 store) where the JAX package returns a new array; the numbers are
@@ -24,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attention as flash_decode
+from repro_torch.kernels import flash_attention as flash_prefill
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -128,17 +130,25 @@ def _sdpa(cfg: ModelConfig, q, k, v, bias) -> torch.Tensor:
 
 def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
                    positions: torch.Tensor, kind: str,
-                   return_kv: bool = False):
-    """Full-sequence self-attention (prefill). Dense up to 2*Q_CHUNK
-    tokens; above that, query chunks run one after another so only one
-    chunk's logits exist at a time (windowed attention slices K/V to the
-    reachable band, causal full attention keeps full-length K)."""
+                   return_kv: bool = False, impl: str = "auto"):
+    """Full-sequence self-attention (prefill) over positions 0..S-1.
+
+    ``"flash"`` runs the prefill flash-attention kernel over the whole
+    sequence at any S. ``"dense"`` materializes the logits up to
+    2*Q_CHUNK tokens; above that, query chunks run one after another so
+    only one chunk's logits exist at a time (windowed attention slices
+    K/V to the reachable band, causal full attention keeps full-length
+    K)."""
     causal = cfg.causal
     window = _window(cfg, kind)
     q, k, v = _project_qkv(cfg, p, x, x)
     q, k = _rope(cfg, positions, q, k)
     B, S = x.shape[:2]
-    if S <= 2 * Q_CHUNK:
+    if _resolve_impl(impl, x) == "flash" and _flash_eligible(cfg):
+        out = flash_prefill.flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal=causal,
+                                            window=window)
+    elif S <= 2 * Q_CHUNK:
         bias = _mask_bias(cfg, positions, positions, causal, window)[:, None]
         out = _sdpa(cfg, q, k, v, bias)
     else:
@@ -233,8 +243,8 @@ def _kernel_kv(k: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return k.to(q.dtype)
 
 
-def _flash_decode_eligible(cfg: ModelConfig) -> bool:
-    """The flash-decode kernel has no softcap."""
+def _flash_eligible(cfg: ModelConfig) -> bool:
+    """The flash kernels have no softcap."""
     return not cfg.logit_softcap
 
 
@@ -275,7 +285,7 @@ def paged_decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     valid = k_pos >= 0
 
     impl = _resolve_impl(impl, x)
-    if impl == "flash" and _flash_decode_eligible(cfg):
+    if impl == "flash" and _flash_eligible(cfg):
         out = flash_decode.paged_decode_attention(
             q[:, 0], _kernel_kv(k, q), _kernel_kv(v, q),
             pages.to(torch.int32).contiguous(), valid)
@@ -343,7 +353,7 @@ def decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
         valid &= (tb[:, None] - k_pos) < window
 
     impl = _resolve_impl(impl, x)
-    if impl == "flash" and _flash_decode_eligible(cfg):
+    if impl == "flash" and _flash_eligible(cfg):
         out = flash_decode.decode_attention(q[:, 0], _kernel_kv(k, q),
                                             _kernel_kv(v, q), valid)
         out = out[:, None]                                     # [B,1,H,dh]

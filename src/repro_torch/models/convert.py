@@ -2,9 +2,12 @@
 
 The JAX tree stacks every ``blocks`` leaf along a leading repeat axis
 (``repro/models/transformer.py:79-91``); the port keeps one superblock
-dict per repeat, so that axis is unstacked here. Norm scales stay fp32
-(the norms compute in fp32); every other leaf is stored once in the
-compute dtype, which the forward pass reads without a per-call cast.
+dict per repeat, so that axis is unstacked here — RG-LRU leaves (``in_x``,
+``in_gate``, ``conv1d`` [K,W], ``gate_a``/``gate_x`` [heads,blk,blk],
+``bias_a``/``bias_x``, ``lam``, ``out``) like every other. Norm scales and
+the RG-LRU ``lam`` stay fp32 (they are used in fp32); every other leaf
+is stored once in the compute dtype, which the forward pass reads
+without a per-call cast.
 """
 
 from __future__ import annotations
@@ -18,8 +21,8 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
 
-def _is_norm(path: tuple) -> bool:
-    return any(str(k).endswith("norm") for k in path)
+def _keeps_fp32(path: tuple) -> bool:
+    return path[-1] == "lam" or any(str(k).endswith("norm") for k in path)
 
 
 def _convert(tree: Any, path: tuple, device, dtype) -> Any:
@@ -28,7 +31,7 @@ def _convert(tree: Any, path: tuple, device, dtype) -> Any:
                 for k, v in tree.items()}
     t = torch.from_numpy(np.array(tree, dtype=np.float32))   # own copy
     return t.to(device=device,
-                dtype=torch.float32 if _is_norm(path) else dtype)
+                dtype=torch.float32 if _keeps_fp32(path) else dtype)
 
 
 def _unstack(tree: Any, r: int) -> Any:

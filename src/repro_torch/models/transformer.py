@@ -1,4 +1,4 @@
-"""Backbone assembly for attention-only stacks: the port of
+"""Backbone assembly for attention and RG-LRU stacks: the port of
 ``repro.models.transformer``.
 
 Parameters are a dict tree like the JAX package's, except that
@@ -11,9 +11,10 @@ leaves are batch-leading, so a state converts leaf by leaf through numpy.
 Repeat ``r`` of the stack reads and writes its own view ``leaf[r]`` in
 place.
 
-Blocks of kind RGLRU, MAMBA or XATTN, and experts, are not ported yet and
-raise ``NotImplementedError`` naming the ROADMAP.md queue item that ports
-them.
+RG-LRU blocks keep fp32 ``{"h": [B, W], "conv": [B, K-1, W]}`` state,
+per row. Blocks of kind MAMBA or XATTN, and experts, are not ported yet
+and raise ``NotImplementedError`` naming the ROADMAP.md queue item that
+ports them.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rglru
 from repro_torch.models.config import (ATTN, LOCAL, MAMBA, RGLRU, SWA, XATTN,
                                        ModelConfig)
 
@@ -32,15 +33,15 @@ _ATTN_KINDS = (ATTN, SWA, LOCAL)
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run yet."""
     kinds = set(cfg.pattern) | set(cfg.remainder)
-    if kinds & {RGLRU, MAMBA}:
+    if MAMBA in kinds:
         raise NotImplementedError(
-            f"{cfg.name}: RG-LRU / Mamba blocks are not ported yet — "
-            "ROADMAP.md queue item Q2 (recurrent families with K4/K5)")
+            f"{cfg.name}: Mamba blocks are not ported yet — ROADMAP.md "
+            "queue item Q2 (Falcon-Mamba with the K5 selective scan)")
     if XATTN in kinds or cfg.num_experts or cfg.conv_pos:
         raise NotImplementedError(
             f"{cfg.name}: cross-attention, experts and audio frontends are "
             "not ported yet — ROADMAP.md queue item Q5 (MoE, VLM and audio)")
-    if kinds - set(_ATTN_KINDS):
+    if kinds - set(_ATTN_KINDS) - {RGLRU}:
         raise ValueError(f"unknown block kinds {sorted(kinds)}")
 
 
@@ -67,10 +68,14 @@ def _leaf_view(state: dict, group: str, r: Optional[int], i: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def _init_block(cfg: ModelConfig, kind: str, gen, device, dtype) -> dict:
-    return {"norm": layers.init_norm(cfg, device),
-            "attn": attention.init_attention(cfg, gen, device, dtype),
-            "mlp_norm": layers.init_norm(cfg, device),
-            "mlp": layers.init_mlp(cfg, gen, device, dtype)}
+    p = {"norm": layers.init_norm(cfg, device)}
+    if kind == RGLRU:
+        p["rglru"] = rglru.init_rglru_block(cfg, gen, device, dtype)
+    else:
+        p["attn"] = attention.init_attention(cfg, gen, device, dtype)
+    p["mlp_norm"] = layers.init_norm(cfg, device)
+    p["mlp"] = layers.init_mlp(cfg, gen, device, dtype)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
@@ -114,9 +119,11 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
-def forward(cfg: ModelConfig, params: dict, *,
-            tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (hidden [B,S,D], aux_loss)."""
+def forward(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
+            impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (hidden [B,S,D], aux_loss).
+    ``impl`` picks the attention and RG-LRU scan route (see
+    ``prefill``)."""
     check_supported(cfg)
     x = layers.embed_tokens(cfg, params["embed"], tokens)
     B, S = x.shape[:2]
@@ -124,8 +131,12 @@ def forward(cfg: ModelConfig, params: dict, *,
     for group, r, i, kind in _layers(cfg):
         p = _block_params(params, group, r, i)
         h = layers.apply_norm(cfg, p["norm"], x)
-        x = x + attention.self_attention(cfg, p["attn"], h, positions, kind)
-        x = _mlp_half(cfg, p, x)
+        if kind == RGLRU:
+            h, _ = rglru.apply_rglru_block(cfg, p["rglru"], h, impl=impl)
+        else:
+            h = attention.self_attention(cfg, p["attn"], h, positions, kind,
+                                         impl=impl)
+        x = _mlp_half(cfg, p, x + h)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -137,8 +148,13 @@ def logits_from_hidden(cfg: ModelConfig, params: dict,
 
 def prefill(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
             context_len: Optional[int] = None,
-            cache_dtype=torch.bfloat16):
+            cache_dtype=torch.bfloat16, impl: str = "auto"):
     """Full-sequence forward that also builds the decode state.
+
+    ``impl`` ("auto" | "dense" | "flash") picks the route of every
+    attention block (the flash-attention kernel or the dense einsum) and
+    every RG-LRU scan (the scan kernel or the plain loop); "auto" means
+    the kernels on a CUDA device.
 
     Returns (logits [B,S,V], decode_state positioned at t = S).
     """
@@ -151,10 +167,15 @@ def prefill(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
     for group, r, i, kind in _layers(cfg):
         p = _block_params(params, group, r, i)
         h = layers.apply_norm(cfg, p["norm"], x)
-        h, (k, v) = attention.self_attention(cfg, p["attn"], h, positions,
-                                             kind, return_kv=True)
-        caches[group, r, i] = attention.build_cache_from_full(
-            cfg, k, v, context_len, kind, cache_dtype)
+        if kind == RGLRU:
+            h, caches[group, r, i] = rglru.apply_rglru_block(
+                cfg, p["rglru"], h, want_state=True, impl=impl)
+        else:
+            h, (k, v) = attention.self_attention(
+                cfg, p["attn"], h, positions, kind, return_kv=True,
+                impl=impl)
+            caches[group, r, i] = attention.build_cache_from_full(
+                cfg, k, v, context_len, kind, cache_dtype)
         x = _mlp_half(cfg, p, x + h)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     logits = layers.lm_logits(cfg, params["embed"], x)
@@ -167,7 +188,7 @@ def _assemble_state(cfg: ModelConfig, caches: dict) -> dict:
         state["blocks"] = {
             str(i): {leaf: torch.stack([caches["blocks", r, str(i)][leaf]
                                         for r in range(cfg.num_repeats)])
-                     for leaf in ("k", "v")}
+                     for leaf in caches["blocks", 0, str(i)]}
             for i in range(len(cfg.pattern))}
     if cfg.remainder:
         state["tail"] = {str(i): caches["tail", None, str(i)]
@@ -192,23 +213,24 @@ def init_decode_state(cfg: ModelConfig, batch: int, context_len: int,
     """
     check_supported(cfg)
 
-    def shape(kind: str) -> tuple:
+    def block_state(kind: str, lead: tuple) -> dict:
+        if kind == RGLRU:                   # fp32 whatever ``dtype`` says
+            one = rglru.init_rglru_state(cfg, batch, device)
+            return {leaf: z.new_zeros(lead + z.shape)
+                    for leaf, z in one.items()}
         if kind == ATTN and page_size is not None:
-            return attention.paged_kv_cache_shape(cfg, num_pages, page_size)
-        return attention.kv_cache_shape(cfg, batch, context_len, kind)
-
-    def zeros(shp):
-        return torch.zeros(shp, dtype=dtype, device=device)
+            shp = attention.paged_kv_cache_shape(cfg, num_pages, page_size)
+        else:
+            shp = attention.kv_cache_shape(cfg, batch, context_len, kind)
+        return {leaf: torch.zeros(lead + shp, dtype=dtype, device=device)
+                for leaf in ("k", "v")}
 
     state: dict[str, Any] = {}
     if cfg.num_repeats:
-        state["blocks"] = {
-            str(i): {leaf: zeros((cfg.num_repeats,) + shape(kind))
-                     for leaf in ("k", "v")}
-            for i, kind in enumerate(cfg.pattern)}
+        state["blocks"] = {str(i): block_state(kind, (cfg.num_repeats,))
+                           for i, kind in enumerate(cfg.pattern)}
     if cfg.remainder:
-        state["tail"] = {str(i): {leaf: zeros(shape(kind))
-                                  for leaf in ("k", "v")}
+        state["tail"] = {str(i): block_state(kind, ())
                          for i, kind in enumerate(cfg.remainder)}
     return state
 
@@ -378,7 +400,8 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
                 pages: Optional[torch.Tensor] = None):
     """One decode step. tokens [B,1]; ``t`` = absolute position, a scalar
     or a ``[B]`` vector. ``attn_impl`` ("auto" | "dense" | "flash") picks
-    the attention leaf of every ATTN/SWA/LOCAL block. With ``pages``
+    the attention leaf of every ATTN/SWA/LOCAL block; RG-LRU blocks take
+    one recurrence step (no kernel, as in the JAX package). With ``pages``
     ([B, n_log] int32), full-context ATTN layers read their state as the
     shared page pool. The state is updated in place and returned.
     Returns (logits [B,1,V], state).
@@ -388,7 +411,11 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
         p = _block_params(params, group, r, i)
         cache = _leaf_view(state, group, r, i)
         h = layers.apply_norm(cfg, p["norm"], x)
-        if kind == ATTN and pages is not None:
+        if kind == RGLRU:
+            h, new = rglru.apply_rglru_block(cfg, p["rglru"], h, cache)
+            for leaf, dst in cache.items():
+                dst.copy_(new[leaf])
+        elif kind == ATTN and pages is not None:
             h, _ = attention.paged_decode_attention(cfg, p["attn"], h, cache,
                                                     t, pages, impl=attn_impl)
         else:
@@ -407,7 +434,13 @@ def prefill_extend(cfg: ModelConfig, params: dict, state: dict,
                    tokens: torch.Tensor, t0):
     """Advance a (flat) decode state, in place, by a chunk of ``C``
     prompt tokens at positions ``t0 .. t0+C-1``. Returns (last-position
-    logits [B,1,V], state positioned at ``t0 + C``)."""
+    logits [B,1,V], state positioned at ``t0 + C``). Attention-only
+    stacks: the engine gates recurrent ones to exact-length prefill, as
+    the JAX package does."""
+    kinds = set(cfg.pattern) | set(cfg.remainder)
+    if kinds - set(_ATTN_KINDS):
+        raise ValueError(f"{cfg.name}: chunked prefill needs an "
+                         f"attention-only stack, not {sorted(kinds)}")
     x = layers.embed_tokens(cfg, params["embed"], tokens)
     for group, r, i, kind in _layers(cfg):
         p = _block_params(params, group, r, i)

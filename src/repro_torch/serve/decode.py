@@ -102,10 +102,13 @@ def make_fused_serve_step(cfg: ModelConfig, steps: int,
     return fused
 
 
-def make_prefill(cfg: ModelConfig, context_len: Optional[int] = None):
+def make_prefill(cfg: ModelConfig, context_len: Optional[int] = None,
+                 impl: str = "auto"):
+    """(params, tokens [B,S]) -> (logits, decode state); ``impl`` picks
+    the prefill route (``transformer.prefill``)."""
     def prefill_step(params, tokens):
         return transformer.prefill(cfg, params, tokens=tokens,
-                                   context_len=context_len)
+                                   context_len=context_len, impl=impl)
     return prefill_step
 
 
@@ -141,6 +144,8 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, max_new: int,
     right-padded row: row ``b`` continues from its own last real token at
     positions ``lengths[b] + i`` and its tokens land at
     ``out[b, lengths[b]:lengths[b]+max_new]``; the tail keeps the pad.
+    Recurrent stacks refuse padded rows (their state would absorb the
+    pad). ``attn_impl`` picks the prefill and decode routes alike.
     """
     B, S = prompt.shape
     device = prompt.device
@@ -154,7 +159,8 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, max_new: int,
     else:
         t0 = torch.full((B,), S, dtype=torch.int32, device=device)
     logits, state = transformer.prefill(cfg, params, tokens=prompt,
-                                        context_len=context_len)
+                                        context_len=context_len,
+                                        impl=attn_impl)
     rows = torch.arange(B, device=device)
     last_logits = logits[rows, (t0 - 1).long()][:, None]
     sampler = make_sampler(temperature, top_k)

@@ -13,14 +13,19 @@
     from the power-of-two ladder by useful-tokens-per-cost (see
     ``step``). EOS / ``max_new`` retirement slices each row's block to
     its own stop point;
-  * ``decode_impl`` picks the attention leaf ("auto" | "dense" |
-    "flash"): flash runs the flash-decode CUDA kernels (their plain
-    version for a CPU engine); auto means flash on a CUDA device;
+  * ``decode_impl`` ("auto" | "dense" | "flash") picks the kernel route
+    of prefill and decode alike: "flash" runs the CUDA kernels — prefill
+    flash attention and the RG-LRU scan in every prefill, flash-decode in
+    every decode step (their plain versions for a CPU engine); "dense" is
+    plain PyTorch throughout, the parity reference; "auto" means flash on
+    a CUDA device;
   * arrivals are admitted into free slots *between* windows: the request
     is prefilled alone at its exact prompt length and its state written
-    into the free row (``write_decode_slot``);
+    into the free row (``write_decode_slot``). Exact length keeps
+    recurrent (RG-LRU) state correct: no pad token enters a prefill;
   * with ``prefill_chunk``, a long prompt prefills in chunks interleaved
-    between decode windows (``prefill_extend``), strict FCFS;
+    between decode windows (``prefill_extend``), strict FCFS; stacks with
+    RG-LRU blocks accept the knob and prefill every prompt whole;
   * a sequence retires the moment it finishes and its slot is reusable;
   * replies stream back per request through ``concurrent.futures``.
 
@@ -33,7 +38,9 @@ a refcounted prefix cache (``serve.paging.PrefixCache``) lets a prompt
 sharing a cached page-aligned prefix skip that prefix's prefill. With an
 attention-only stack, windows run *compact*: at the active row count
 padded up to a power of two, pad rows carrying an all-trash page table
-and t=0.
+and t=0. A stack without a full-context ATTN layer (RecurrentGemma:
+RG-LRU and LOCAL blocks) has nothing to page: it accepts the knobs and
+keeps the flat per-row layout, as in the JAX package.
 
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device the default raises.
@@ -259,7 +266,7 @@ class ServeEngine:
     def _prefill(self, prompt: np.ndarray):
         logits, state = transformer.prefill(
             self._cfg, self._params, tokens=self._tensor(prompt[None]),
-            context_len=self._Lp)
+            context_len=self._Lp, impl=self._impl)
         return self._sampler(logits[:, -1:], self._gen), state
 
     def _extend(self, state, tokens: np.ndarray, t0: int):

@@ -10,30 +10,34 @@ port's dependencies:
 courier registry.)
 """
 
-import math
-
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import configs
 from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as rg
 from repro_torch.models import transformer
 from repro_torch.serve.engine import ServeEngine
 
 # Kernel and plain version both accumulate in fp32: a float32 output
 # differs by summation order, a bf16 one by at most a rounding step, so
-# its bound is 2 bf16 ulps at the largest |plain| value (as chip_smoke).
+# its bound is 2 bf16 ulps at the largest |plain| value of its row (one
+# head's output vector), as in chip_smoke.
 REL_L2_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 def _assert_matches_plain(out, expect):
     e = expect.float()
-    scale = e.abs().max().item()
-    atol = (2 * 2.0 ** (math.floor(math.log2(scale)) - 7)
-            if out.dtype == torch.bfloat16 and scale > 0 else 2e-5)
-    torch.testing.assert_close(out.float(), e, rtol=0, atol=atol)
+    if out.dtype == torch.bfloat16:
+        row_max = e.abs().amax(dim=-1, keepdim=True)
+        atol = 2 * torch.exp2(torch.floor(torch.log2(row_max)) - 7)
+    else:
+        atol = torch.full_like(e, 2e-5)
+    err = (out.float() - e).abs()
+    assert bool((err <= atol).all()), float((err - atol).max())
     err = (out.float() - e).norm().item()
     assert err <= REL_L2_TOL[out.dtype] * e.norm().item()
 
@@ -52,9 +56,10 @@ def _randn(gen, shape, dtype, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
-def test_cuda_kernels_match_plain(cuda, dtype, dh):
+@pytest.mark.parametrize("H,KV", [(12, 2), (10, 1)])  # Qwen2, RecurrentGemma
+def test_cuda_kernels_match_plain(cuda, dtype, dh, H, KV):
     gen = torch.Generator(device=cuda).manual_seed(dh)
-    B, H, KV, L = 3, 12, 2, 777
+    B, L = 3, 777
     q = _randn(gen, (B, H, dh), dtype, cuda)
     k = _randn(gen, (B, L, KV, dh), dtype, cuda)
     v = _randn(gen, (B, L, KV, dh), dtype, cuda)
@@ -96,12 +101,74 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("page_size", [None, 4])
-def test_cuda_engine_flash_matches_dense(cuda, page_size):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("case", [
+    # B, Sq, Sk, H, KV, causal, window
+    (2, 200, 200, 4, 2, True, None),          # ragged S
+    (1, 70, 333, 6, 1, True, 100),            # right-aligned, windowed
+    (2, 65, 129, 4, 4, False, None),          # encoder
+])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, dh, case):
+    B, Sq, Sk, H, KV, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(dh + Sq)
+    q = _randn(gen, (B, Sq, H, dh), dtype, cuda)
+    k = _randn(gen, (B, Sk, KV, dh), dtype, cuda)
+    v = _randn(gen, (B, Sk, KV, dh), dtype, cuda)
+    before = fa.launches["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.launches["flash_attention"] == before + 1
+    _assert_matches_plain(out, ref.flash_attention(q, k, v, causal, window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W", [(1, 3072, 2560), (3, 37, 100)])
+def test_cuda_rglru_scan_matches_plain(cuda, dtype, B, S, W):
+    """Multiply then add, each rounded, in both: bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    a = (0.8 + 0.199 * torch.rand((B, S, W), generator=gen,
+                                  device=cuda)).to(dtype)
+    x = _randn(gen, (B, S, W), dtype, cuda)
+    h0 = torch.randn((B, W), generator=gen, device=cuda)
+    before = rg.launches["rglru_scan"]
+    y, h = rg.rglru_scan(a, x, h0)
+    assert rg.launches["rglru_scan"] == before + 1
+    ye, he = ref.rglru_scan(a, x, h0)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y, ye, rtol=0, atol=0)
+    torch.testing.assert_close(h, he, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 48), device=cuda)       # dh 48: no instance
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="more queries"):
+        fa.flash_attention(q, q[:, :4].contiguous(), q[:, :4].contiguous())
+    a = torch.zeros((1, 8, 16), device=cuda)
+    with pytest.raises(TypeError, match="h0"):
+        rg.rglru_scan(a, a, torch.zeros((1, 16), device=cuda,
+                                        dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.rglru_scan(a.transpose(1, 2), a.transpose(1, 2),
+                      torch.zeros((1, 8), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,page_size", [("qwen2-1.5b", None),
+                                            ("qwen2-1.5b", 4),
+                                            ("recurrentgemma-2b", None)])
+def test_cuda_engine_flash_matches_dense(cuda, arch, page_size):
     """The reduced config's engine on the card: greedy tokens through the
-    flash-decode kernels equal the dense attention path's."""
+    kernels (prefill flash attention, the RG-LRU scan, flash-decode)
+    equal the plain PyTorch path's."""
     import dataclasses
-    cfg = dataclasses.replace(configs.get_reduced("qwen2-1.5b"),
+    cfg = dataclasses.replace(configs.get_reduced(arch),
                               compute_dtype="float32")
     params = transformer.init_params(cfg, seed=0, device=cuda)
     rng = np.random.default_rng(0)

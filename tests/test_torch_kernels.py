@@ -1,4 +1,4 @@
-"""The port's decode-attention kernels against the JAX package.
+"""The port's kernel contracts against the JAX package.
 
 The plain PyTorch versions (``repro_torch.kernels.ref``) are held against
 ``repro.kernels.ref`` over the shape sweeps of ``tests/test_kernels.py``
@@ -15,7 +15,9 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as rg
 from repro_torch.models import attention
 
 torch.set_num_threads(1)
@@ -34,6 +36,18 @@ DECODE_CASES = [                 # B, H, KV, dh, L (tests/test_kernels.py)
     (3, 4, 4, 32, 512),
     (1, 16, 8, 128, 2048),
 ]
+
+FLASH_CASES = [                  # tests/test_kernels.py
+    # B, Sq, Sk, H, KV, dh, causal, window
+    (2, 128, 128, 4, 2, 64, True, None),
+    (1, 256, 256, 4, 4, 64, True, 64),
+    (2, 128, 256, 4, 1, 64, True, None),      # Sq < Sk (right-aligned)
+    (1, 128, 128, 2, 2, 32, False, None),     # encoder / bidirectional
+    (1, 512, 512, 8, 2, 128, True, 128),      # GQA + window
+    (3, 64, 64, 2, 1, 128, True, None),       # MQA
+]
+
+RGLRU_CASES = [(2, 512, 256), (1, 256, 128), (4, 128, 384)]   # B, S, W
 
 PAGED_CASES = [                  # B, H, KV, dh, P, n_log, ps
     (2, 4, 2, 64, 16, 4, 16),
@@ -211,3 +225,108 @@ def test_split_plan_covers_cache_in_whole_tiles(L, rows, sms):
     assert split_len % dec.TILE == 0
     assert (n_splits - 1) * split_len < L <= n_splits * split_len
     assert rows * n_splits <= dec._BLOCKS_PER_SM * sms + rows
+
+
+def _flash_np(B, Sq, Sk, H, KV, dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, dh), np.float32),
+            rng.standard_normal((B, Sk, KV, dh), np.float32),
+            rng.standard_normal((B, Sk, KV, dh), np.float32))
+
+
+def _rglru_np(B, S, W, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.8, 0.999, (B, S, W)).astype(np.float32),
+            rng.standard_normal((B, S, W), np.float32),
+            rng.standard_normal((B, W), np.float32))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("name", DTYPES)
+def test_flash_plain_matches_jax_ref(case, name):
+    tdt, jdt = DTYPES[name]
+    B, Sq, Sk, H, KV, dh, causal, window = case
+    arrs = _flash_np(B, Sq, Sk, H, KV, dh)
+    out = ref.flash_attention(*_to_torch(arrs, tdt, 3), causal=causal,
+                              window=window)
+    assert out.dtype == tdt and out.shape == (B, Sq, H, dh)
+    _close(out, jref.flash_attention(*_to_jax(arrs, jdt, 3), causal=causal,
+                                     window=window), name)
+
+
+@pytest.mark.parametrize("case", RGLRU_CASES)
+@pytest.mark.parametrize("name", DTYPES)
+def test_rglru_plain_matches_jax_ref(case, name):
+    """The sequential loop against the JAX package's ``lax.scan``: y in
+    x's dtype with that file's tolerances, h_last fp32 (1e-5; 1e-2 where
+    the inputs are bf16, as tests/test_kernels.py holds the kernel)."""
+    tdt, jdt = DTYPES[name]
+    arrs = _rglru_np(*case)
+    y, h = ref.rglru_scan(*_to_torch(arrs, tdt, 2))
+    jy, jh = jref.rglru_scan(*_to_jax(arrs, jdt, 2))
+    assert y.dtype == tdt and h.dtype == torch.float32
+    _close(y, jy, name)
+    tol = 1e-2 if name == "bfloat16" else 1e-5
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", DTYPES)
+def test_flash_plain_matches_pallas_interpret(name):
+    tdt, jdt = DTYPES[name]
+    arrs = _flash_np(1, 128, 256, 4, 2, 32, seed=8)
+    out = ref.flash_attention(*_to_torch(arrs, tdt, 3), window=96)
+    pallas = jops.flash_attention(*_to_jax(arrs, jdt, 3), window=96,
+                                  block_q=64, block_k=64, interpret=True)
+    _close(out, pallas, name)
+
+
+@pytest.mark.parametrize("name", DTYPES)
+def test_rglru_plain_matches_pallas_interpret(name):
+    tdt, jdt = DTYPES[name]
+    arrs = _rglru_np(2, 256, 128, seed=9)
+    y, h = ref.rglru_scan(*_to_torch(arrs, tdt, 2))
+    jy, jh = jops.rglru_scan(*_to_jax(arrs, jdt, 2), block_s=128,
+                             block_w=128, interpret=True)
+    _close(y, jy, name)
+    tol = 1e-2 if name == "bfloat16" else 1e-5
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=tol, atol=tol)
+
+
+def test_prefill_kernel_dispatch_rules():
+    """K3 and K4 on the CPU run the plain version and count no launch; a
+    device with no kernel raises instead of falling back; and neither
+    hands autograd an output whose gradient it does not compute."""
+    q, k, v = (torch.from_numpy(a) for a in _flash_np(1, 40, 40, 4, 2, 16,
+                                                      seed=10))
+    a, x, h0 = (torch.from_numpy(t) for t in _rglru_np(2, 30, 24, seed=10))
+    before = (dict(fa.launches), dict(rg.launches))
+    torch.testing.assert_close(fa.flash_attention(q, k, v, window=7),
+                               ref.flash_attention(q, k, v, window=7),
+                               rtol=0, atol=0)
+    for got, want in zip(rg.rglru_scan(a, x, h0), ref.rglru_scan(a, x, h0)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (fa.launches, rg.launches) == before
+    with pytest.raises(ValueError, match="no flash-attention kernel"):
+        fa.flash_attention(*(t.to("meta") for t in (q, k, v)))
+    with pytest.raises(ValueError, match="no rglru-scan kernel"):
+        rg.rglru_scan(*(t.to("meta") for t in (a, x, h0)))
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rg.rglru_scan(a, x.requires_grad_(), h0)
+    with torch.no_grad():                 # no gradient asked for: fine
+        fa.flash_attention(q, k, v)
+        rg.rglru_scan(a, x, h0)
+
+
+def test_flash_plain_right_aligns_and_windows():
+    """Queries right-aligned over a longer key sequence equal the last Sq
+    rows of the square problem, with or without a window."""
+    q, k, v = (torch.from_numpy(t) for t in _flash_np(2, 48, 48, 4, 1, 16,
+                                                      seed=11))
+    for window in (None, 10):
+        full = ref.flash_attention(q, k, v, window=window)
+        tail = ref.flash_attention(q[:, -20:].contiguous(), k, v,
+                                   window=window)
+        torch.testing.assert_close(tail, full[:, -20:], rtol=1e-6,
+                                   atol=1e-6)

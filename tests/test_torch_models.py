@@ -1,4 +1,4 @@
-"""The port's attention-only model against the JAX package, on the CPU.
+"""The port's models against the JAX package, on the CPU.
 
 The JAX parameter tree of the reduced qwen2 config is converted leaf by
 leaf (``params_from_numpy``); inputs are made with numpy from a seed and
@@ -6,6 +6,12 @@ go through both frameworks. At fp32 compute, logits agree within atol
 1e-4 (summation order only). KV caches are stored in bf16 in both, so
 cache leaves agree to one bf16 rounding step (atol/rtol 1e-2) where
 they derive from recomputed activations.
+
+The RecurrentGemma cases run the reduced config (5 layers, d 64, window
+16) at fp32 compute. Their logits and fp32 recurrent state (h, conv) are
+held to atol 1e-4, which covers the port's sequential scan against the
+JAX package's associative scan (ROADMAP.md C6: the two sum in another
+order).
 """
 
 import dataclasses
@@ -17,9 +23,11 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from repro.models import rglru as jrglru
 from repro.models import transformer as jt
 from repro_torch import configs
 from repro_torch.models import convert
+from repro_torch.models import rglru as trglru
 from repro_torch.models import transformer as tt
 
 torch.set_num_threads(1)
@@ -245,8 +253,168 @@ def test_bf16_compute_logits_close():
 
 
 def test_unported_blocks_raise_naming_the_roadmap():
-    for arch, item in (("recurrentgemma-2b", "Q2"), ("falcon-mamba-7b", "Q2"),
-                       ("mixtral-8x7b", "Q5"),
+    for arch, item in (("falcon-mamba-7b", "Q2"), ("mixtral-8x7b", "Q5"),
                        ("llama-3.2-vision-11b", "Q5")):
         with pytest.raises(NotImplementedError, match=item):
             tt.init_params(configs.get_reduced(arch), device="cpu")
+
+
+# -- RecurrentGemma (RG-LRU + LOCAL attention) ---------------------------------
+
+RG32 = dataclasses.replace(jconfigs.get_reduced("recurrentgemma-2b"),
+                           compute_dtype="float32")
+RG_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def rg_model():
+    jp = jt.init_params(RG32, jax.random.key(0))
+    return jp, convert.params_from_numpy(RG32, _np_tree(jp), device="cpu")
+
+
+def _rg_tokens(B, S, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, RG32.vocab_size, (B, S)).astype(np.int32)
+
+
+def _assert_state_close(t_tree, j_tree):
+    """Recurrent leaves (fp32) to RG_TOL, the bf16 LOCAL ring to
+    CACHE_TOL."""
+    for group in j_tree:
+        assert set(t_tree[group]) == set(j_tree[group])
+        for i, leaves in j_tree[group].items():
+            assert set(t_tree[group][i]) == set(leaves)
+            for leaf, jv in leaves.items():
+                tv = t_tree[group][i][leaf]
+                assert tv.shape == jv.shape
+                tol = RG_TOL if leaf in ("h", "conv") else CACHE_TOL
+                np.testing.assert_allclose(tv.float().numpy(),
+                                           np.asarray(jv, np.float32), **tol)
+
+
+def test_rg_init_and_converter_keep_the_jax_layout(rg_model):
+    """Seeded init draws the JAX tree's leaves, shapes and dtypes (Λ
+    fp32, matrices in the compute dtype), and the converter unstacks the
+    RG-LRU leaves of the repeat axis and keeps Λ fp32 under bf16."""
+    jp, tp = rg_model
+    own = tt.init_params(RG32, seed=0, device="cpu")
+
+    def walk(a, b):
+        if isinstance(b, dict):
+            assert set(a) == set(b)
+            for k in b:
+                walk(a[k], b[k])
+        elif isinstance(b, list):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                walk(x, y)
+        else:
+            assert a.shape == b.shape and a.dtype == b.dtype
+    walk(own, tp)
+    blk = tp["blocks"][0]["1"]["rglru"]
+    np.testing.assert_array_equal(
+        blk["gate_a"].numpy(),
+        np.asarray(jp["blocks"]["1"]["rglru"]["gate_a"][0]))
+    assert blk["conv1d"].shape == (RG32.conv1d_width, RG32.lru_width)
+    bf = convert.params_from_numpy(RG32, _np_tree(jp), device="cpu",
+                                   dtype=torch.bfloat16)
+    assert bf["tail"]["0"]["rglru"]["lam"].dtype == torch.float32
+    assert bf["tail"]["0"]["rglru"]["in_x"]["kernel"].dtype == torch.bfloat16
+    lam = own["tail"]["0"]["rglru"]["lam"]          # a at r = 1 is u
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(lam))
+    assert float(a.min()) >= 0.81 - 1e-6 and float(a.max()) <= 0.998 + 1e-6
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_rg_apply_block_matches(rg_model, impl):
+    """One RG-LRU block, full sequence with its final state, then one
+    decode step from that state."""
+    jp, tp = rg_model
+    pj, pt = jp["tail"]["0"]["rglru"], tp["tail"]["0"]["rglru"]
+    x = np.random.default_rng(12).standard_normal(
+        (2, 21, RG32.d_model), np.float32)
+    jo, js = jrglru.apply_rglru_block(RG32, pj, jnp.asarray(x),
+                                      want_state=True)
+    to, ts = trglru.apply_rglru_block(RG32, pt, torch.from_numpy(x),
+                                      want_state=True, impl=impl)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **RG_TOL)
+    for leaf in ("h", "conv"):
+        assert ts[leaf].dtype == torch.float32
+        np.testing.assert_allclose(ts[leaf].numpy(), np.asarray(js[leaf]),
+                                   **RG_TOL)
+    step = x[:, :1] * 0.5
+    jo, js2 = jrglru.apply_rglru_block(RG32, pj, jnp.asarray(step), js)
+    to, ts2 = trglru.apply_rglru_block(RG32, pt, torch.from_numpy(step),
+                                       _to_torch_tree(js))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **RG_TOL)
+    for leaf in ("h", "conv"):
+        np.testing.assert_allclose(ts2[leaf].numpy(), np.asarray(js2[leaf]),
+                                   **RG_TOL)
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_rg_forward_and_prefill_match(rg_model, impl):
+    """forward and prefill logits, and the prefill state: h and conv of
+    every RG-LRU block and the LOCAL ring, over a prompt longer than the
+    window (24 > 16)."""
+    jp, tp = rg_model
+    toks = _rg_tokens(2, 24, seed=13)
+    jh, _ = jt.forward(RG32, jp, tokens=jnp.asarray(toks))
+    th, _ = tt.forward(RG32, tp, tokens=torch.from_numpy(toks), impl=impl)
+    np.testing.assert_allclose(
+        tt.logits_from_hidden(RG32, tp, th).numpy(),
+        np.asarray(jt.logits_from_hidden(RG32, jp, jh)), **RG_TOL)
+    jl, js = jt.prefill(RG32, jp, tokens=jnp.asarray(toks), context_len=32)
+    tl, ts = tt.prefill(RG32, tp, tokens=torch.from_numpy(toks),
+                        context_len=32, impl=impl)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **RG_TOL)
+    _assert_state_close(ts, js)
+    assert ts["blocks"]["0"]["h"].shape == (1, 2, RG32.lru_width)
+    assert ts["blocks"]["2"]["k"].shape == (1, 2, RG32.window, 1, 16)
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_rg_decode_steps_match(rg_model, impl):
+    """Several decode steps past the window (the LOCAL ring wraps), each
+    from the same state in both frameworks; the port writes its state in
+    place."""
+    jp, tp = rg_model
+    toks = _rg_tokens(2, 22, seed=14)
+    _, js = jt.prefill(RG32, jp, tokens=jnp.asarray(toks[:, :18]),
+                       context_len=32)
+    for s in range(18, 22):
+        feed = toks[:, s:s + 1]
+        t = np.full((2,), s, np.int32)
+        ts = _to_torch_tree(js)
+        jl, js = jt.decode_step(RG32, jp, js, jnp.asarray(feed),
+                                jnp.asarray(t), attn_impl=impl)
+        tl, ts2 = tt.decode_step(RG32, tp, ts, torch.from_numpy(feed),
+                                 torch.from_numpy(t), attn_impl=impl)
+        assert ts2 is ts
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **RG_TOL)
+        _assert_state_close(ts2, js)
+
+
+def test_rg_decode_state_and_slot_writes_match():
+    """The zeroed decode state has the JAX layout (recurrent leaves fp32
+    under a bf16 cache) and ``write_decode_slot`` moves the same bytes."""
+    rng = np.random.default_rng(15)
+    spec = jt.decode_state_spec(RG32, 3, 20)
+    zeros = tt.init_decode_state(RG32, 3, 20, device="cpu")
+    for group in spec:
+        for i, leaves in spec[group].items():
+            for leaf, sd in leaves.items():
+                z = zeros[group][i][leaf]
+                assert z.shape == sd.shape
+                assert str(z.dtype).split(".")[-1] == str(sd.dtype)
+
+    def rand_tree(spec):
+        return jax.tree.map(lambda s: jnp.asarray(
+            rng.standard_normal(s.shape, np.float32), s.dtype), spec)
+
+    flat = rand_tree(spec)
+    one = rand_tree(jt.decode_state_spec(RG32, 1, 20))
+    j = jt.write_decode_slot(RG32, flat, one, 2)
+    t = tt.write_decode_slot(RG32, _to_torch_tree(flat), _to_torch_tree(one),
+                             2)
+    _assert_tree_close(t, j, rtol=0, atol=0)

@@ -2,7 +2,8 @@
 serve program, and import hygiene.
 
 Engine invariants are ported from ``tests/test_engine.py`` (the
-attention-only cases); "solo" is the port's own ``generate``. Greedy
+attention-only and RecurrentGemma cases); "solo" is the port's own
+``generate``. Greedy
 tokens are also held against the JAX package at fp32 compute, where they
 are exact; sampled paths are checked for sync invariance and for their
 distribution (``jax.random`` streams cannot be reproduced).
@@ -399,6 +400,88 @@ def test_engine_default_device_is_cuda(params):
         tserve.build_program(CFG)
 
 
+# -- RecurrentGemma (RG-LRU + LOCAL) through the engine -------------------------
+
+RG = jconfigs.get_reduced("recurrentgemma-2b")
+
+
+@pytest.fixture(scope="module")
+def rg_params():
+    jp = jt.init_params(RG, jax.random.key(1))
+    return convert.params_from_numpy(RG, jax.tree.map(np.asarray, jp),
+                                     device="cpu")
+
+
+def _rg_prompts(lens, seed):
+    return _prompts(lens, seed=seed, vocab=RG.vocab_size)
+
+
+def test_engine_serves_recurrent_arch(rg_params):
+    """Exact-length admission keeps RG-LRU state correct: no pad token
+    ever enters a prefill (tests/test_engine.py, recurrentgemma case)."""
+    prompts = _rg_prompts([5, 9], seed=1)
+    engine = _engine(rg_params, cfg=RG, max_new=3)
+    futs = [engine.submit(p) for p in prompts]
+    _run(engine, futs)
+    for p, f in zip(prompts, futs):
+        np.testing.assert_array_equal(
+            f.result(), _solo(rg_params, p, max_new=3, cfg=RG))
+
+
+@pytest.mark.parametrize("sync_every", [1, 8])
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_rg_fused_and_flash_match_solo(rg_params, sync_every, impl):
+    prompts = _rg_prompts([5, 9, 12], seed=11)
+    engine = _engine(rg_params, cfg=RG, sync_every=sync_every,
+                     decode_impl=impl)
+    futs = [engine.submit(p) for p in prompts]
+    _run(engine, futs)
+    for p, f in zip(prompts, futs):
+        np.testing.assert_array_equal(
+            f.result(), _solo(rg_params, p, cfg=RG, impl=impl))
+
+
+@pytest.mark.parametrize("sync_every", [1, 8])
+def test_rg_paged_engine_matches_solo(rg_params, sync_every):
+    """No full-context layer to page: the knobs are accepted, the flat
+    per-row layout runs underneath, and chunked prefill is gated off."""
+    prompts = _rg_prompts([5, 9, 12, 7], seed=21)
+    engine = _engine(rg_params, cfg=RG, sync_every=sync_every, page_size=8,
+                     num_pages=12, prefill_chunk=4)
+    futs = [engine.submit(p) for p in prompts]
+    _run(engine, futs)
+    for p, f in zip(prompts, futs):
+        np.testing.assert_array_equal(f.result(),
+                                      _solo(rg_params, p, cfg=RG))
+    assert "pages_total" not in engine.stats()
+
+
+def test_rg_engine_matches_jax_engine():
+    """The JAX ServeEngine and the port's give the same greedy tokens for
+    RecurrentGemma at fp32 compute, with prompts past the window."""
+    cfg = dataclasses.replace(RG, compute_dtype="float32")
+    jp = jt.init_params(cfg, jax.random.key(4))
+    tp = convert.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+    prompts = _rg_prompts([5, 19, 11], seed=5)
+    kw = dict(num_slots=2, context_len=32, max_new=6, sync_every=4)
+    outs = []
+    for eng in (JaxServeEngine(cfg, jp, **kw),
+                ServeEngine(cfg, tp, device="cpu", **kw)):
+        futs = [eng.submit(p) for p in prompts]
+        _run(eng, futs)
+        outs.append([f.result() for f in futs])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_rg_generate_refuses_padded_rows(rg_params):
+    prompt = torch.from_numpy(np.stack(_rg_prompts([6, 6], seed=6)))
+    with pytest.raises(ValueError, match="recurrent state"):
+        serve_lib.generate(RG, rg_params, prompt, 2, context_len=12,
+                           lengths=np.array([6, 3], np.int32))
+
+
 # -- serve program --------------------------------------------------------------
 
 def test_engine_server_generate_returns_numpy():
@@ -469,11 +552,13 @@ def test_port_imports_no_jax_and_no_repro():
         from repro_torch import configs
         from repro_torch.models import transformer
         from repro_torch.serve import decode
-        cfg = configs.get_reduced("qwen2-1.5b")
-        params = transformer.init_params(cfg, seed=0, device="cpu")
-        out = decode.generate(cfg, params, torch.zeros((1, 4), dtype=torch.int32),
-                              max_new=3, attn_impl="flash")
-        assert out.shape == (1, 7)
+        for arch in ("qwen2-1.5b", "recurrentgemma-2b"):
+            cfg = configs.get_reduced(arch)
+            params = transformer.init_params(cfg, seed=0, device="cpu")
+            out = decode.generate(cfg, params,
+                                  torch.zeros((1, 4), dtype=torch.int32),
+                                  max_new=3, attn_impl="flash")
+            assert out.shape == (1, 7)
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
                or m == "repro" or m.startswith("repro.")]
