@@ -9,19 +9,20 @@ each of which ends the run with a non-zero exit on failure:
    CUDA versions;
 2. build: compile every kernel from ``src/repro_torch/kernels/csrc``;
 3. kernels: hold each CUDA kernel (K1 flash-decode, K2 paged
-   flash-decode, K3 prefill flash attention, K4 RG-LRU scan) against its
-   plain PyTorch version on the card at the serving path's full-width
-   shapes and at edge shapes, to a tolerance scaled to the output (shown
-   to reject a dropped tile, or a scan whose state was reset), and time
-   kernel, plain version and a library yardstick;
-4. parity: full-width Qwen2-1.5B and RecurrentGemma-2B (seeded random
-   weights, fp32 compute) through ``ServeEngine``: greedy tokens through
-   the kernels must equal those of the plain PyTorch path (Qwen2 flat and
-   paged; RecurrentGemma with a prompt longer than its window), and the
-   prefill time per request is timed through both;
+   flash-decode, K3 prefill flash attention, K4 RG-LRU scan, K5 Mamba-1
+   selective scan) against its plain PyTorch version on the card at the
+   serving path's full-width shapes and at edge shapes, to a tolerance
+   scaled to the output (shown to reject a dropped tile, a scan whose
+   state was reset, or one whose output reads the previous state), and
+   time kernel, plain version and a library yardstick;
+4. parity: full-width Qwen2-1.5B, RecurrentGemma-2B and Falcon-Mamba-7B
+   (seeded random weights, fp32 compute) through ``ServeEngine``: greedy
+   tokens through the kernels must equal those of the plain PyTorch path
+   (Qwen2 flat and paged; RecurrentGemma with a prompt longer than its
+   window), and the prefill time per request is timed through both;
 5. serve: ``build_program`` (clients -> batcher -> engine server) on the
    thread launcher, in each config's own bf16: Qwen2 flat and paged,
-   RecurrentGemma flat.
+   RecurrentGemma and Falcon-Mamba flat.
 
 Prints JSON lines; the one before the last is the ``{"kernels": ...}``
 record, the last ``{"ok": true, "device": {...}}``. Exits non-zero, and
@@ -50,6 +51,10 @@ SRC = ROOT / "src"
 # for the inputs' type: dense bf16 on the tensor cores, fp32 outside them.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Exponentials: one MUFU.EX2 each, 16 results a clock per SM on compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput); the rate is this times the SMs and the card's max SM clock.
+MUFU_PER_CLOCK_PER_SM = 16
 # Kernel against plain version, both accumulating in fp32. The tolerance
 # scales with the output: a bf16 output may differ by a rounding step, so
 # |err| <= 2 bf16 ulps at the largest |plain| value of its row (one head's
@@ -415,6 +420,7 @@ def phase_kernels() -> list[dict]:
     })
     records.append(_flash_attention_record(gen, errors))
     records.append(_rglru_scan_record(gen, errors))
+    records.append(_ssm_scan_record(gen, errors))
     emit({"phase": "kernels", "checks": errors})
     return records
 
@@ -562,19 +568,148 @@ def _rglru_scan_record(gen, errors) -> dict:
             "shape": dict(B=B, S=S, W=W, dtype="float32", h0="randn")}
 
 
+def _ssm_inputs(gen, B, S, Di, N, dtype):
+    """u in ``dtype``, the rest fp32 as the model hands them over, at its
+    scale: Δ a softplus, A = -(1..N) per channel (Falcon-Mamba's A_log),
+    B, C and D normal, non-zero h0."""
+    dev = "cuda"
+    u = torch.randn((B, S, Di), generator=gen, device=dev).to(dtype)
+    delta = torch.nn.functional.softplus(
+        torch.randn((B, S, Di), generator=gen, device=dev))
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(Di, 1)
+    Bc = torch.randn((B, S, N), generator=gen, device=dev)
+    Cc = torch.randn((B, S, N), generator=gen, device=dev)
+    D = torch.randn((Di,), generator=gen, device=dev)
+    h0 = torch.randn((B, Di, N), generator=gen, device=dev)
+    return u, delta, A, Bc, Cc, D, h0
+
+
+def _ssm_y_from_previous_h(u, delta, A, Bc, Cc, D, h0):
+    """The plain scan with one fault: y_t reads h_{t-1}, the state before
+    step t's update. The plain scan with D = 0 and C taken one step ahead
+    gives z_t = h_t . C_{t+1}, so the faulty y_t is z_{t-1} + D u_t (and
+    h0 . C_0 + D u_0 at t = 0)."""
+    from repro_torch.kernels import ref
+    c_next = torch.cat([Cc[:, 1:], Cc[:, :1]], dim=1).contiguous()
+    z, _ = ref.ssm_scan(u.float(), delta, A, Bc, c_next, torch.zeros_like(D),
+                        h0)
+    first = torch.einsum("bdn,bn->bd", h0, Cc[:, 0])[:, None]
+    return (torch.cat([first, z[:, :-1]], dim=1) + D * u.float()).to(u.dtype)
+
+
+def _max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def _ssm_scan_record(gen, errors) -> dict:
+    """K5 against its plain loop: N 4 and 8, Di not a multiple of the
+    block's channel tile, S of 1, 7 and 1001, B=3, all with non-zero h0;
+    then the main shape (Falcon-Mamba-7B prefill: B=1, S=2048, Di=8192,
+    N=16) with bf16 u as served and fp32 u as in the fp32 parity run; y
+    and h_last checked, h_last also for bit identity. Two wrong scans must
+    be rejected: h reset at S/2, and y_t read from h_{t-1}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss
+
+    bit_identical = {}
+    for B, S, Di, N, dtype in [(1, 1, 8192, 16, torch.bfloat16),
+                               (1, 7, 8190, 16, torch.float32),
+                               (2, 1001, 1000, 8, torch.bfloat16),
+                               (3, 1001, 333, 4, torch.float32),
+                               (3, 257, 8192, 16, torch.bfloat16)]:
+        args = _ssm_inputs(gen, B, S, Di, N, dtype)
+        (y, h), (ye, he) = ss.ssm_scan(*args), ref.ssm_scan(*args)
+        name = f"K5 B={B} S={S} Di={Di} N={N} u {dtype}"
+        _check(f"{name} y", y, ye, errors)
+        _check(f"{name} h_last", h, he, errors)
+        bit_identical[name] = bool(torch.equal(h, he))
+
+    B, S, Di, N = 1, 2048, 8192, 16
+    main, fp32_u = None, None
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _ssm_inputs(gen, B, S, Di, N, dtype)
+        (y, h), (ye, he) = ss.ssm_scan(*args), ref.ssm_scan(*args)
+        name = f"K5 main B={B} S={S} Di={Di} N={N} u {dtype}"
+        c = _check(f"{name} y", y, ye, errors)
+        _check(f"{name} h_last", h, he, errors)
+        bit_identical[name] = bool(torch.equal(h, he))
+        u, delta, A, Bc, Cc, D, h0 = args
+        half = S // 2
+        y1, _ = ref.ssm_scan(u[:, :half], delta[:, :half], A, Bc[:, :half],
+                             Cc[:, :half], D, h0)
+        y2, _ = ref.ssm_scan(*(t[:, half:].contiguous()
+                               for t in (u, delta)), A,
+                             *(t[:, half:].contiguous() for t in (Bc, Cc)),
+                             D, torch.zeros_like(h0))
+        margins = {
+            "h_reset_over_tol": _rejects(
+                f"{name} y", torch.cat([y1, y2], dim=1), ye, errors,
+                "h reset to 0 at S/2"),
+            "y_from_previous_h_over_tol": _rejects(
+                f"{name} y", _ssm_y_from_previous_h(*args), ye, errors,
+                "y_t read from h_{t-1}")}
+        # The least time for the work: u, Δ, B, C, A, D and h0 read once,
+        # y and h_last written once, against the operations: one exp per
+        # (row, step, channel, state) at the MUFU rate, and six fp32
+        # operations (Δ*A, Δ*u*B, the step's multiply and add, h*C and the
+        # sum over N) at the fp32 peak.
+        elems = B * S * Di * N
+        nbytes = ((u.numel() + y.numel()) * u.element_size()
+                  + (delta.numel() + 2 * Bc.numel() + A.numel() + D.numel()
+                     + h0.numel() + h.numel()) * 4)
+        clock = _max_sm_clock_hz()
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "exp": elems / (MUFU_PER_CLOCK_PER_SM * sms * clock) * 1e3,
+                 "fp32_ops": 6 * elems / PEAK_FLOPS_PER_S[torch.float32]
+                 * 1e3}
+        bound_ms = max(terms.values())
+        timed = {
+            **c, **margins,
+            "ms": _time_ms(lambda: ss.ssm_scan(*args)),
+            "plain_ms": _time_ms(lambda: ref.ssm_scan(*args), iters=5,
+                                 warmup=1),
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_ms == terms["bytes"] else "operations",
+            "bound_terms_ms": terms, "bound_bytes": nbytes,
+            "bound_exps": elems, "bound_sm_clock_mhz": clock / 1e6,
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes a selective scan",
+            "shape": dict(B=B, S=S, Di=Di, N=N,
+                          u_dtype=str(dtype).split(".")[1], h0="randn")}
+        if dtype == torch.bfloat16:
+            main = timed
+            main["device_ms"] = _device_ms(lambda: ss.ssm_scan(*args))
+        else:
+            fp32_u = timed
+    return {"name": "ssm_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:75",
+            "launches": None, "launches_by_path": None, **main,
+            "h_last_bit_identical": bit_identical,
+            "bound_rate": ("3.35 TB/s, 67 TFLOP/s fp32 (H100 SXM datasheet); "
+                           f"{MUFU_PER_CLOCK_PER_SM} exp a clock per SM at "
+                           "the max SM clock (CUDA guide, cc 9.0)"),
+            "other_shapes": {"falcon-mamba-7b prefill, fp32 u": fp32_u}}
+
+
 # ---------------------------------------------------------------------------
 # 4. full-width parity: the kernels against plain PyTorch, through the engine
 # ---------------------------------------------------------------------------
 
 PARITY_TIE = 1e-3        # top-2 margin below which a step is a near-tie
 KERNEL_NAMES = ("decode_attention", "paged_decode_attention",
-                "flash_attention", "rglru_scan")
+                "flash_attention", "rglru_scan", "ssm_scan")
 
 
 def _counter_modules():
     from repro_torch.kernels import decode_attention, flash_attention
-    from repro_torch.kernels import rglru_scan
-    return (decode_attention, flash_attention, rglru_scan)
+    from repro_torch.kernels import rglru_scan, ssm_scan
+    return (decode_attention, flash_attention, rglru_scan, ssm_scan)
 
 
 def _reset_launches() -> None:
@@ -737,6 +872,25 @@ def _parity_recurrentgemma(cfg, params) -> tuple[dict, dict]:
     return info, {"flat sync=8": run}
 
 
+def _parity_falcon_mamba(cfg, params) -> tuple[dict, dict]:
+    ctx, max_new = 4096, 16
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (512, 1000, 2048)]
+    common = dict(num_slots=3, context_len=ctx, max_new=max_new)
+    ref, _, _ = _drive(cfg, params, prompts, decode_impl="dense", **common)
+    outs, run, _ = _drive(cfg, params, prompts, decode_impl="flash", **common)
+    ties = _compare_tokens(cfg, params, prompts, ref, outs, max_new, ctx,
+                           "falcon-mamba")
+    if run["ssm_scan"] != cfg.num_layers * len(prompts):
+        fail(f"falcon-mamba flash run launched ssm_scan {run['ssm_scan']} "
+             f"times, not {cfg.num_layers} per prefill")
+    info = {"prompt_lens": [len(p) for p in prompts], "max_new": max_new,
+            "context_len": ctx, "near_ties": {"flat sync=8": ties},
+            "prefill_ms_per_request": _prefill_ms(cfg, params, prompts, ctx)}
+    return info, {"flat sync=8": run}
+
+
 def phase_parity(device_line: str) -> dict:
     """Returns each flash run's launches, by path name."""
     import dataclasses
@@ -746,7 +900,8 @@ def phase_parity(device_line: str) -> dict:
 
     paths = {}
     for arch, drive in (("qwen2-1.5b", _parity_qwen2),
-                        ("recurrentgemma-2b", _parity_recurrentgemma)):
+                        ("recurrentgemma-2b", _parity_recurrentgemma),
+                        ("falcon-mamba-7b", _parity_falcon_mamba)):
         cfg = dataclasses.replace(configs.get(arch), compute_dtype="float32")
         t0 = time.perf_counter()
         params = transformer.init_params(cfg, seed=0, device="cuda")
@@ -777,7 +932,8 @@ def phase_serve(device_line: str) -> dict:
             ("qwen2-1.5b", None, 4, ("decode_attention", "flash_attention")),
             ("qwen2-1.5b", 16, 4, ("decode_attention", "flash_attention")),
             ("recurrentgemma-2b", None, 2,
-             ("decode_attention", "flash_attention", "rglru_scan"))):
+             ("decode_attention", "flash_attention", "rglru_scan")),
+            ("falcon-mamba-7b", None, 2, ("ssm_scan",))):
         cfg = configs.get(arch)
         n_clients, plen, max_new = 3, 128, 32
         with tempfile.TemporaryDirectory() as tmp:
@@ -804,6 +960,9 @@ def phase_serve(device_line: str) -> dict:
         for name in kernels:
             if not run[name]:
                 fail(f"{label} launched no {name} kernel")
+        if cfg.ssm_state and run["ssm_scan"] != total * cfg.num_layers:
+            fail(f"{label} launched ssm_scan {run['ssm_scan']} times, not "
+                 f"{cfg.num_layers} per request")
         emit({"phase": "serve", "config": f"{arch} full width, bf16, seeded "
               "random weights", "paged": page_size,
               "requests": summary["count"], "prompt_len": plen,

@@ -185,6 +185,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         I, I, I,                      # B, S, W
         P]                            # stream
     lib.repro_rglru_scan.restype = I
+    lib.repro_ssm_scan.argtypes = [
+        I, I,                         # u dtype, N
+        P, P, P, P, P, P, P,          # u, delta, A, B, C, D, h0
+        P, P,                         # y, h_last
+        I, I, I,                      # B, S, Di
+        P]                            # stream
+    lib.repro_ssm_scan.restype = I
 
 
 if __name__ == "__main__":

@@ -124,3 +124,59 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
         h = af[:, t] * h + xf[:, t]
         ys[:, t] = h
     return ys.to(x.dtype), h
+
+
+# Time steps whose discretised operands the plain selective scan forms at
+# once: bounds its [B, chunk, Di, N] temporaries (at Falcon-Mamba-7B's
+# Di 8192 and N 16, 128 MB each in fp32 per batch row).
+SSM_CHUNK = 256
+
+
+def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+             h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan, sequential over S, in fp32:
+
+        h_t = exp(Δ_t ⊗ A) * h_{t-1} + (Δ_t u_t) ⊗ B_t
+        y_t = Σ_n h_t C_t + D u_t
+
+    u/delta [B,S,Di], A [Di,N], B/C [B,S,N], D [Di], h0 [B,Di,N] ->
+    (y [B,S,Di] in u's dtype, h_last [B,Di,N] fp32).
+
+    Each step multiplies and then adds, each rounded, and the sum over N
+    folds halves pairwise (``_halving_sum``), as the kernel does, so the
+    two can agree bit for bit. exp(Δ⊗A) and Δu⊗B are formed a chunk of
+    steps at a time (the same elementwise products as one step at a
+    time), so the loop itself is two launches per step.
+    """
+    uf, df = u.float(), delta.float()
+    Af, Bf, Cf, Df = A.float(), B.float(), C.float(), D.float()
+    Bb, S, Di = u.shape
+    h = h0.float()
+    y = torch.empty((Bb, S, Di), dtype=torch.float32, device=u.device)
+    for s0 in range(0, S, SSM_CHUNK):
+        s1 = min(S, s0 + SSM_CHUNK)
+        dA = torch.exp(df[:, s0:s1, :, None] * Af)               # [B,c,Di,N]
+        dBu = (df[:, s0:s1] * uf[:, s0:s1])[..., None] \
+            * Bf[:, s0:s1, None, :]
+        hs = torch.empty_like(dA)
+        for t in range(s1 - s0):
+            h = torch.mul(dA[:, t], h, out=hs[:, t])
+            h.add_(dBu[:, t])
+        y[:, s0:s1] = (_halving_sum(hs * Cf[:, s0:s1, None, :])
+                       + Df * uf[:, s0:s1])
+    return y.to(u.dtype), h.clone(memory_format=torch.contiguous_format)
+
+
+def _halving_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim by adding its second half to its first until
+    one entry is left: for N = 16, ((t0+t8)+(t4+t12)) + ... . This is the
+    order of the kernel's reduce-scatter over a channel's N lanes (partner
+    lanes n ^ N/2, then n ^ N/4, ...); an odd length carries its last
+    entry to the next round."""
+    while t.shape[-1] > 1:
+        n = t.shape[-1]
+        half = n // 2
+        folded = t[..., :half] + t[..., half:2 * half]
+        t = folded if n % 2 == 0 else torch.cat([folded, t[..., -1:]], -1)
+    return t[..., 0]

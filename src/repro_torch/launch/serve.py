@@ -16,6 +16,12 @@ injection) and checkpoint loading are later slices of the port and raise
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch falcon-mamba-7b --device cpu
+
+Attention-only (qwen2), RG-LRU + LOCAL (recurrentgemma) and Mamba-1
+(falcon-mamba) stacks serve here; the recurrent ones keep per-row state
+in the engine. MoE, vision and audio stacks are ROADMAP.md queue item Q5.
 """
 
 from __future__ import annotations

@@ -4,10 +4,13 @@ The JAX tree stacks every ``blocks`` leaf along a leading repeat axis
 (``repro/models/transformer.py:79-91``); the port keeps one superblock
 dict per repeat, so that axis is unstacked here — RG-LRU leaves (``in_x``,
 ``in_gate``, ``conv1d`` [K,W], ``gate_a``/``gate_x`` [heads,blk,blk],
-``bias_a``/``bias_x``, ``lam``, ``out``) like every other. Norm scales and
-the RG-LRU ``lam`` stay fp32 (they are used in fp32); every other leaf
-is stored once in the compute dtype, which the forward pass reads
-without a per-call cast.
+``bias_a``/``bias_x``, ``lam``, ``out``) and Mamba leaves (``in_proj``,
+``conv1d`` [K,Di], ``conv_bias``, ``x_proj``, ``dt_proj``, ``A_log``
+[Di,N], ``D``, ``out_proj``) like every other; a Mamba block has no MLP
+leaves. Norm scales, the RG-LRU ``lam`` and the Mamba ``A_log`` and ``D``
+stay fp32 (they are used in fp32: ``-exp(A_log)``, ``u * D``, so a bf16
+copy would change the numbers); every other leaf is stored once in the
+compute dtype, which the forward pass reads without a per-call cast.
 """
 
 from __future__ import annotations
@@ -21,8 +24,12 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
 
+_FP32_LEAVES = ("lam", "A_log", "D")
+
+
 def _keeps_fp32(path: tuple) -> bool:
-    return path[-1] == "lam" or any(str(k).endswith("norm") for k in path)
+    return (path[-1] in _FP32_LEAVES
+            or any(str(k).endswith("norm") for k in path))
 
 
 def _convert(tree: Any, path: tuple, device, dtype) -> Any:

@@ -1,4 +1,4 @@
-"""Backbone assembly for attention and RG-LRU stacks: the port of
+"""Backbone assembly for attention, RG-LRU and Mamba stacks: the port of
 ``repro.models.transformer``.
 
 Parameters are a dict tree like the JAX package's, except that
@@ -12,9 +12,10 @@ Repeat ``r`` of the stack reads and writes its own view ``leaf[r]`` in
 place.
 
 RG-LRU blocks keep fp32 ``{"h": [B, W], "conv": [B, K-1, W]}`` state,
-per row. Blocks of kind MAMBA or XATTN, and experts, are not ported yet
-and raise ``NotImplementedError`` naming the ROADMAP.md queue item that
-ports them.
+per row, and Mamba blocks fp32 ``{"h": [B, Di, N], "conv": [B, K-1,
+Di]}``; a Mamba block has no MLP half, as in the JAX package. Blocks of
+kind XATTN, and experts, are not ported yet and raise
+``NotImplementedError`` naming the ROADMAP.md queue item that ports them.
 """
 
 from __future__ import annotations
@@ -23,25 +24,22 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.models import attention, layers, rglru
+from repro_torch.models import attention, layers, rglru, ssm
 from repro_torch.models.config import (ATTN, LOCAL, MAMBA, RGLRU, SWA, XATTN,
                                        ModelConfig)
 
 _ATTN_KINDS = (ATTN, SWA, LOCAL)
+_RECURRENT_KINDS = (RGLRU, MAMBA)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run yet."""
     kinds = set(cfg.pattern) | set(cfg.remainder)
-    if MAMBA in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba blocks are not ported yet — ROADMAP.md "
-            "queue item Q2 (Falcon-Mamba with the K5 selective scan)")
     if XATTN in kinds or cfg.num_experts or cfg.conv_pos:
         raise NotImplementedError(
             f"{cfg.name}: cross-attention, experts and audio frontends are "
             "not ported yet — ROADMAP.md queue item Q5 (MoE, VLM and audio)")
-    if kinds - set(_ATTN_KINDS) - {RGLRU}:
+    if kinds - set(_ATTN_KINDS) - set(_RECURRENT_KINDS):
         raise ValueError(f"unknown block kinds {sorted(kinds)}")
 
 
@@ -69,6 +67,9 @@ def _leaf_view(state: dict, group: str, r: Optional[int], i: str) -> dict:
 
 def _init_block(cfg: ModelConfig, kind: str, gen, device, dtype) -> dict:
     p = {"norm": layers.init_norm(cfg, device)}
+    if kind == MAMBA:                   # no MLP half
+        p["mamba"] = ssm.init_mamba_block(cfg, gen, device, dtype)
+        return p
     if kind == RGLRU:
         p["rglru"] = rglru.init_rglru_block(cfg, gen, device, dtype)
     else:
@@ -110,7 +111,10 @@ def params_device(params: dict) -> torch.device:
 # Full sequence (train-style forward / prefill)
 # ---------------------------------------------------------------------------
 
-def _mlp_half(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def _mlp_half(cfg: ModelConfig, kind: str, p: dict,
+              x: torch.Tensor) -> torch.Tensor:
+    if kind == MAMBA:                   # the Mamba block subsumes the MLP
+        return x
     h = layers.apply_norm(cfg, p["mlp_norm"], x)
     return x + layers.apply_mlp(cfg, p["mlp"], h)
 
@@ -122,8 +126,7 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 def forward(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
             impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (hidden [B,S,D], aux_loss).
-    ``impl`` picks the attention and RG-LRU scan route (see
-    ``prefill``)."""
+    ``impl`` picks the attention and scan route (see ``prefill``)."""
     check_supported(cfg)
     x = layers.embed_tokens(cfg, params["embed"], tokens)
     B, S = x.shape[:2]
@@ -133,10 +136,12 @@ def forward(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
         h = layers.apply_norm(cfg, p["norm"], x)
         if kind == RGLRU:
             h, _ = rglru.apply_rglru_block(cfg, p["rglru"], h, impl=impl)
+        elif kind == MAMBA:
+            h, _ = ssm.apply_mamba_block(cfg, p["mamba"], h, impl=impl)
         else:
             h = attention.self_attention(cfg, p["attn"], h, positions, kind,
                                          impl=impl)
-        x = _mlp_half(cfg, p, x + h)
+        x = _mlp_half(cfg, kind, p, x + h)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -153,8 +158,8 @@ def prefill(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
 
     ``impl`` ("auto" | "dense" | "flash") picks the route of every
     attention block (the flash-attention kernel or the dense einsum) and
-    every RG-LRU scan (the scan kernel or the plain loop); "auto" means
-    the kernels on a CUDA device.
+    every RG-LRU and selective scan (the scan kernel or the plain loop);
+    "auto" means the kernels on a CUDA device.
 
     Returns (logits [B,S,V], decode_state positioned at t = S).
     """
@@ -170,13 +175,16 @@ def prefill(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
         if kind == RGLRU:
             h, caches[group, r, i] = rglru.apply_rglru_block(
                 cfg, p["rglru"], h, want_state=True, impl=impl)
+        elif kind == MAMBA:
+            h, caches[group, r, i] = ssm.apply_mamba_block(
+                cfg, p["mamba"], h, want_state=True, impl=impl)
         else:
             h, (k, v) = attention.self_attention(
                 cfg, p["attn"], h, positions, kind, return_kv=True,
                 impl=impl)
             caches[group, r, i] = attention.build_cache_from_full(
                 cfg, k, v, context_len, kind, cache_dtype)
-        x = _mlp_half(cfg, p, x + h)
+        x = _mlp_half(cfg, kind, p, x + h)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     logits = layers.lm_logits(cfg, params["embed"], x)
     return logits, _assemble_state(cfg, caches)
@@ -214,8 +222,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, context_len: int,
     check_supported(cfg)
 
     def block_state(kind: str, lead: tuple) -> dict:
-        if kind == RGLRU:                   # fp32 whatever ``dtype`` says
-            one = rglru.init_rglru_state(cfg, batch, device)
+        if kind in _RECURRENT_KINDS:        # fp32 whatever ``dtype`` says
+            one = (rglru.init_rglru_state(cfg, batch, device) if kind == RGLRU
+                   else ssm.init_mamba_state(cfg, batch, device))
             return {leaf: z.new_zeros(lead + z.shape)
                     for leaf, z in one.items()}
         if kind == ATTN and page_size is not None:
@@ -400,10 +409,10 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
                 pages: Optional[torch.Tensor] = None):
     """One decode step. tokens [B,1]; ``t`` = absolute position, a scalar
     or a ``[B]`` vector. ``attn_impl`` ("auto" | "dense" | "flash") picks
-    the attention leaf of every ATTN/SWA/LOCAL block; RG-LRU blocks take
-    one recurrence step (no kernel, as in the JAX package). With ``pages``
-    ([B, n_log] int32), full-context ATTN layers read their state as the
-    shared page pool. The state is updated in place and returned.
+    the attention leaf of every ATTN/SWA/LOCAL block; RG-LRU and Mamba
+    blocks take one recurrence step (no kernel, as in the JAX package).
+    With ``pages`` ([B, n_log] int32), full-context ATTN layers read their
+    state as the shared page pool. The state is updated in place and returned.
     Returns (logits [B,1,V], state).
     """
     x = layers.embed_tokens(cfg, params["embed"], tokens)
@@ -411,8 +420,11 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
         p = _block_params(params, group, r, i)
         cache = _leaf_view(state, group, r, i)
         h = layers.apply_norm(cfg, p["norm"], x)
-        if kind == RGLRU:
-            h, new = rglru.apply_rglru_block(cfg, p["rglru"], h, cache)
+        if kind in _RECURRENT_KINDS:
+            if kind == RGLRU:
+                h, new = rglru.apply_rglru_block(cfg, p["rglru"], h, cache)
+            else:
+                h, new = ssm.apply_mamba_block(cfg, p["mamba"], h, cache)
             for leaf, dst in cache.items():
                 dst.copy_(new[leaf])
         elif kind == ATTN and pages is not None:
@@ -421,7 +433,7 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
         else:
             h, _ = attention.decode_attention(cfg, p["attn"], h, cache, t,
                                               kind, impl=attn_impl)
-        x = _mlp_half(cfg, p, x + h)
+        x = _mlp_half(cfg, kind, p, x + h)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     return layers.lm_logits(cfg, params["embed"], x), state
 
@@ -447,6 +459,6 @@ def prefill_extend(cfg: ModelConfig, params: dict, state: dict,
         cache = _leaf_view(state, group, r, i)
         h = layers.apply_norm(cfg, p["norm"], x)
         h, _ = attention.extend_attention(cfg, p["attn"], h, cache, t0, kind)
-        x = _mlp_half(cfg, p, x + h)
+        x = _mlp_half(cfg, kind, p, x + h)
     x = layers.apply_norm(cfg, params["final_norm"], x[:, -1:])
     return layers.lm_logits(cfg, params["embed"], x), state

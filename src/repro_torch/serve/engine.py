@@ -15,17 +15,19 @@
     its own stop point;
   * ``decode_impl`` ("auto" | "dense" | "flash") picks the kernel route
     of prefill and decode alike: "flash" runs the CUDA kernels — prefill
-    flash attention and the RG-LRU scan in every prefill, flash-decode in
-    every decode step (their plain versions for a CPU engine); "dense" is
+    flash attention, the RG-LRU scan and the selective scan in every
+    prefill, flash-decode in every decode step (their plain versions for
+    a CPU engine); "dense" is
     plain PyTorch throughout, the parity reference; "auto" means flash on
     a CUDA device;
   * arrivals are admitted into free slots *between* windows: the request
     is prefilled alone at its exact prompt length and its state written
     into the free row (``write_decode_slot``). Exact length keeps
-    recurrent (RG-LRU) state correct: no pad token enters a prefill;
+    recurrent (RG-LRU, Mamba) state correct: no pad token enters a
+    prefill;
   * with ``prefill_chunk``, a long prompt prefills in chunks interleaved
     between decode windows (``prefill_extend``), strict FCFS; stacks with
-    RG-LRU blocks accept the knob and prefill every prompt whole;
+    recurrent blocks accept the knob and prefill every prompt whole;
   * a sequence retires the moment it finishes and its slot is reusable;
   * replies stream back per request through ``concurrent.futures``.
 
@@ -39,8 +41,8 @@ sharing a cached page-aligned prefix skip that prefix's prefill. With an
 attention-only stack, windows run *compact*: at the active row count
 padded up to a power of two, pad rows carrying an all-trash page table
 and t=0. A stack without a full-context ATTN layer (RecurrentGemma:
-RG-LRU and LOCAL blocks) has nothing to page: it accepts the knobs and
-keeps the flat per-row layout, as in the JAX package.
+RG-LRU and LOCAL blocks; Falcon-Mamba) has nothing to page: it accepts
+the knobs and keeps the flat per-row layout, as in the JAX package.
 
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device the default raises.

@@ -19,6 +19,7 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import ssm_scan as ss
 from repro_torch.models import transformer
 from repro_torch.serve.engine import ServeEngine
 
@@ -140,6 +141,41 @@ def test_cuda_rglru_scan_matches_plain(cuda, dtype, B, S, W):
     torch.testing.assert_close(h, he, rtol=0, atol=0)
 
 
+def _ssm_inputs(gen, B, S, Di, N, dtype, device):
+    """u in ``dtype``, the rest fp32, at the model's scale: Δ a softplus,
+    A = -(1..N) per channel, non-zero h0."""
+    u = _randn(gen, (B, S, Di), dtype, device)
+    delta = torch.nn.functional.softplus(
+        torch.randn((B, S, Di), generator=gen, device=device))
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device=device).repeat(Di, 1)
+    Bc = torch.randn((B, S, N), generator=gen, device=device)
+    Cc = torch.randn((B, S, N), generator=gen, device=device)
+    D = torch.randn((Di,), generator=gen, device=device)
+    h0 = torch.randn((B, Di, N), generator=gen, device=device)
+    return u, delta, A, Bc, Cc, D, h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Di,N", [(1, 2048, 8192, 16),  # Falcon-Mamba-7B
+                                      (3, 1001, 333, 8), (2, 7, 100, 4),
+                                      (1, 1, 64, 16)])
+def test_cuda_ssm_scan_matches_plain(cuda, dtype, B, S, Di, N):
+    """y to the plain loop's tolerance (the sum over N runs in another
+    order); h_last multiplies then adds, each rounded, as the plain loop
+    does, so it is held to the fp32 limit."""
+    gen = torch.Generator(device=cuda).manual_seed(S + Di)
+    args = _ssm_inputs(gen, B, S, Di, N, dtype, cuda)
+    before = ss.launches["ssm_scan"]
+    y, h = ss.ssm_scan(*args)
+    assert ss.launches["ssm_scan"] == before + 1
+    ye, he = ref.ssm_scan(*args)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    _assert_matches_plain(y, ye)
+    _assert_matches_plain(h, he)
+
+
 @pytest.mark.gpu
 def test_cuda_prefill_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 48), device=cuda)       # dh 48: no instance
@@ -157,16 +193,27 @@ def test_cuda_prefill_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         rg.rglru_scan(a.transpose(1, 2), a.transpose(1, 2),
                       torch.zeros((1, 8), device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    args = list(_ssm_inputs(gen, 1, 8, 16, 32, torch.float32, cuda))
+    with pytest.raises(ValueError, match="state size"):
+        ss.ssm_scan(*args)                            # N 32: not built
+    args = list(_ssm_inputs(gen, 1, 8, 16, 16, torch.float32, cuda))
+    with pytest.raises(TypeError, match="delta"):
+        ss.ssm_scan(args[0], args[1].to(torch.bfloat16), *args[2:])
+    bc = torch.zeros((1, 8, 32), device=cuda)         # B/C split views
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssm_scan(*args[:3], bc[..., :16], bc[..., 16:], *args[5:])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,page_size", [("qwen2-1.5b", None),
                                             ("qwen2-1.5b", 4),
-                                            ("recurrentgemma-2b", None)])
+                                            ("recurrentgemma-2b", None),
+                                            ("falcon-mamba-7b", None)])
 def test_cuda_engine_flash_matches_dense(cuda, arch, page_size):
     """The reduced config's engine on the card: greedy tokens through the
-    kernels (prefill flash attention, the RG-LRU scan, flash-decode)
-    equal the plain PyTorch path's."""
+    kernels (prefill flash attention, the RG-LRU and selective scans,
+    flash-decode) equal the plain PyTorch path's."""
     import dataclasses
     cfg = dataclasses.replace(configs.get_reduced(arch),
                               compute_dtype="float32")

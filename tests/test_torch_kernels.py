@@ -18,6 +18,7 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import ssm_scan as ss
 from repro_torch.models import attention
 
 torch.set_num_threads(1)
@@ -48,6 +49,14 @@ FLASH_CASES = [                  # tests/test_kernels.py
 ]
 
 RGLRU_CASES = [(2, 512, 256), (1, 256, 128), (4, 128, 384)]   # B, S, W
+
+SSM_CASES = [                    # B, S, Di, N (tests/test_kernels.py, then
+    (2, 256, 256, 16),           # ragged S and S past the plain loop's
+    (1, 128, 128, 8),            # chunk of steps)
+    (2, 64, 384, 4),
+    (3, 77, 96, 16),
+    (1, 300, 64, 8),
+]
 
 PAGED_CASES = [                  # B, H, KV, dh, P, n_log, ps
     (2, 4, 2, 64, 16, 4, 16),
@@ -241,6 +250,31 @@ def _rglru_np(B, S, W, seed=0):
             rng.standard_normal((B, W), np.float32))
 
 
+def _ssm_np(B, S, Di, N, seed=0):
+    """u, Δ, A, B, C, D, h0 as tests/test_kernels.py draws them, with a
+    non-zero h0."""
+    rng = np.random.default_rng(seed)
+    delta = np.logaddexp(rng.standard_normal((B, S, Di)), 0)
+    return (rng.standard_normal((B, S, Di), np.float32),
+            delta.astype(np.float32),
+            -np.exp(rng.standard_normal((Di, N)) * 0.5).astype(np.float32),
+            rng.standard_normal((B, S, N), np.float32),
+            rng.standard_normal((B, S, N), np.float32),
+            rng.standard_normal((Di,), np.float32),
+            rng.standard_normal((B, Di, N), np.float32))
+
+
+def _ssm_args(arrs, tdt):
+    """u in ``tdt``, the rest fp32, as the model hands them over."""
+    return [torch.from_numpy(a).to(tdt) if i == 0 else torch.from_numpy(a)
+            for i, a in enumerate(arrs)]
+
+
+def _ssm_jax(arrs, jdt):
+    return [jnp.asarray(a, jdt) if i == 0 else jnp.asarray(a)
+            for i, a in enumerate(arrs)]
+
+
 @pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("name", DTYPES)
 def test_flash_plain_matches_jax_ref(case, name):
@@ -270,6 +304,40 @@ def test_rglru_plain_matches_jax_ref(case, name):
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("case", SSM_CASES)
+@pytest.mark.parametrize("name", DTYPES)
+def test_ssm_plain_matches_jax_ref(case, name):
+    """The sequential loop against the JAX package's ``lax.scan``: y in
+    u's dtype with this file's tolerances, h_last fp32 within 1e-5 (both
+    compute in fp32 from the same inputs; exp and the sum over N differ
+    in the last bits)."""
+    tdt, jdt = DTYPES[name]
+    arrs = _ssm_np(*case)
+    y, h = ref.ssm_scan(*_ssm_args(arrs, tdt))
+    jy, jh = jref.ssm_scan(*_ssm_jax(arrs, jdt))
+    B, S, Di, N = case
+    assert y.dtype == tdt and y.shape == (B, S, Di)
+    assert h.dtype == torch.float32 and h.shape == (B, Di, N)
+    assert h.is_contiguous()
+    _close(y, jy, name)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name", DTYPES)
+def test_ssm_plain_matches_pallas_interpret(name):
+    """Against the Pallas body at an S and Di its blocks divide (the
+    kernel takes any)."""
+    tdt, jdt = DTYPES[name]
+    arrs = _ssm_np(2, 128, 128, 16, seed=12)
+    y, h = ref.ssm_scan(*_ssm_args(arrs, tdt))
+    jy, jh = jops.ssm_scan(*_ssm_jax(arrs, jdt), block_s=64, block_d=64,
+                           interpret=True)
+    _close(y, jy, name)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("name", DTYPES)
 def test_flash_plain_matches_pallas_interpret(name):
     tdt, jdt = DTYPES[name]
@@ -293,30 +361,38 @@ def test_rglru_plain_matches_pallas_interpret(name):
 
 
 def test_prefill_kernel_dispatch_rules():
-    """K3 and K4 on the CPU run the plain version and count no launch; a
-    device with no kernel raises instead of falling back; and neither
+    """K3, K4 and K5 on the CPU run the plain version and count no launch;
+    a device with no kernel raises instead of falling back; and none
     hands autograd an output whose gradient it does not compute."""
     q, k, v = (torch.from_numpy(a) for a in _flash_np(1, 40, 40, 4, 2, 16,
                                                       seed=10))
     a, x, h0 = (torch.from_numpy(t) for t in _rglru_np(2, 30, 24, seed=10))
-    before = (dict(fa.launches), dict(rg.launches))
+    sargs = _ssm_args(_ssm_np(2, 30, 24, 8, seed=10), torch.float32)
+    before = (dict(fa.launches), dict(rg.launches), dict(ss.launches))
     torch.testing.assert_close(fa.flash_attention(q, k, v, window=7),
                                ref.flash_attention(q, k, v, window=7),
                                rtol=0, atol=0)
     for got, want in zip(rg.rglru_scan(a, x, h0), ref.rglru_scan(a, x, h0)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert (fa.launches, rg.launches) == before
+    for got, want in zip(ss.ssm_scan(*sargs), ref.ssm_scan(*sargs)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (fa.launches, rg.launches, ss.launches) == before
     with pytest.raises(ValueError, match="no flash-attention kernel"):
         fa.flash_attention(*(t.to("meta") for t in (q, k, v)))
     with pytest.raises(ValueError, match="no rglru-scan kernel"):
         rg.rglru_scan(*(t.to("meta") for t in (a, x, h0)))
+    with pytest.raises(ValueError, match="no ssm-scan kernel"):
+        ss.ssm_scan(*(t.to("meta") for t in sargs))
     with pytest.raises(RuntimeError, match="no backward"):
         fa.flash_attention(q.requires_grad_(), k, v)
     with pytest.raises(RuntimeError, match="no backward"):
         rg.rglru_scan(a, x.requires_grad_(), h0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ss.ssm_scan(sargs[0].requires_grad_(), *sargs[1:])
     with torch.no_grad():                 # no gradient asked for: fine
         fa.flash_attention(q, k, v)
         rg.rglru_scan(a, x, h0)
+        ss.ssm_scan(*sargs)
 
 
 def test_flash_plain_right_aligns_and_windows():

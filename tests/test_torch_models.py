@@ -11,7 +11,9 @@ The RecurrentGemma cases run the reduced config (5 layers, d 64, window
 16) at fp32 compute. Their logits and fp32 recurrent state (h, conv) are
 held to atol 1e-4, which covers the port's sequential scan against the
 JAX package's associative scan (ROADMAP.md C6: the two sum in another
-order).
+order). The Falcon-Mamba cases run its reduced config (2 Mamba blocks,
+d 64, d_inner 128, N 4) at fp32 compute under the same tolerance, for
+the same reason.
 """
 
 import dataclasses
@@ -24,10 +26,12 @@ import torch
 
 from repro import configs as jconfigs
 from repro.models import rglru as jrglru
+from repro.models import ssm as jssm
 from repro.models import transformer as jt
 from repro_torch import configs
 from repro_torch.models import convert
 from repro_torch.models import rglru as trglru
+from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as tt
 
 torch.set_num_threads(1)
@@ -253,7 +257,7 @@ def test_bf16_compute_logits_close():
 
 
 def test_unported_blocks_raise_naming_the_roadmap():
-    for arch, item in (("falcon-mamba-7b", "Q2"), ("mixtral-8x7b", "Q5"),
+    for arch, item in (("mixtral-8x7b", "Q5"),
                        ("llama-3.2-vision-11b", "Q5")):
         with pytest.raises(NotImplementedError, match=item):
             tt.init_params(configs.get_reduced(arch), device="cpu")
@@ -418,3 +422,151 @@ def test_rg_decode_state_and_slot_writes_match():
     t = tt.write_decode_slot(RG32, _to_torch_tree(flat), _to_torch_tree(one),
                              2)
     _assert_tree_close(t, j, rtol=0, atol=0)
+
+
+# -- Falcon-Mamba (Mamba-1 blocks) ----------------------------------------------
+
+FM32 = dataclasses.replace(jconfigs.get_reduced("falcon-mamba-7b"),
+                           compute_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def fm_model():
+    jp = jt.init_params(FM32, jax.random.key(0))
+    return jp, convert.params_from_numpy(FM32, _np_tree(jp), device="cpu")
+
+
+def _fm_tokens(B, S, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, FM32.vocab_size, (B, S)).astype(np.int32)
+
+
+def test_fm_init_and_converter_keep_the_jax_layout(fm_model):
+    """Seeded init draws the JAX tree's leaves, shapes and dtypes; the
+    converter unstacks the repeat axis, adds no MLP leaves to a Mamba
+    block and keeps A_log and D fp32 under bf16."""
+    jp, tp = fm_model
+    own = tt.init_params(FM32, seed=0, device="cpu")
+
+    def walk(a, b):
+        if isinstance(b, dict):
+            assert set(a) == set(b)
+            for k in b:
+                walk(a[k], b[k])
+        elif isinstance(b, list):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                walk(x, y)
+        else:
+            assert a.shape == b.shape and a.dtype == b.dtype
+    walk(own, tp)
+    assert len(tp["blocks"]) == FM32.num_repeats
+    for r, blk in enumerate(tp["blocks"]):
+        assert set(blk["0"]) == {"norm", "mamba"}
+        np.testing.assert_array_equal(
+            blk["0"]["mamba"]["x_proj"]["kernel"].numpy(),
+            np.asarray(jp["blocks"]["0"]["mamba"]["x_proj"]["kernel"][r]))
+    di, n = tssm.d_inner(FM32), FM32.ssm_state
+    own_m = own["blocks"][0]["0"]["mamba"]
+    np.testing.assert_array_equal(
+        own_m["A_log"].numpy(),
+        np.asarray(jp["blocks"]["0"]["mamba"]["A_log"][0]))
+    assert own_m["A_log"].shape == (di, n)
+    torch.testing.assert_close(own_m["D"], torch.ones(di), rtol=0, atol=0)
+    bf = convert.params_from_numpy(FM32, _np_tree(jp), device="cpu",
+                                   dtype=torch.bfloat16)
+    m = bf["blocks"][1]["0"]["mamba"]
+    assert m["A_log"].dtype == torch.float32 and m["D"].dtype == torch.float32
+    assert m["in_proj"]["kernel"].dtype == torch.bfloat16
+    assert m["dt_proj"]["bias"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_fm_apply_block_matches(fm_model, impl):
+    """One Mamba block, full sequence with its final state, then one
+    decode step from that state."""
+    jp, tp = fm_model
+    pj = jax.tree.map(lambda a: a[1], jp["blocks"]["0"]["mamba"])
+    pt = tp["blocks"][1]["0"]["mamba"]
+    x = np.random.default_rng(16).standard_normal(
+        (2, 19, FM32.d_model), np.float32)
+    jo, js = jssm.apply_mamba_block(FM32, pj, jnp.asarray(x),
+                                    want_state=True)
+    to, ts = tssm.apply_mamba_block(FM32, pt, torch.from_numpy(x),
+                                    want_state=True, impl=impl)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **RG_TOL)
+    for leaf in ("h", "conv"):
+        assert ts[leaf].dtype == torch.float32
+        np.testing.assert_allclose(ts[leaf].numpy(), np.asarray(js[leaf]),
+                                   **RG_TOL)
+    step = x[:, :1] * 0.5
+    jo, js2 = jssm.apply_mamba_block(FM32, pj, jnp.asarray(step), js)
+    to, ts2 = tssm.apply_mamba_block(FM32, pt, torch.from_numpy(step),
+                                     _to_torch_tree(js))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **RG_TOL)
+    for leaf in ("h", "conv"):
+        np.testing.assert_allclose(ts2[leaf].numpy(), np.asarray(js2[leaf]),
+                                   **RG_TOL)
+
+
+@pytest.mark.parametrize("S", [1, 2, 23])
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_fm_forward_and_prefill_match(fm_model, impl, S):
+    """forward and prefill logits and the prefill state (h and the
+    pre-silu conv tail of every block), for prompts shorter than the
+    conv tail (K-1 = 3) and longer."""
+    jp, tp = fm_model
+    toks = _fm_tokens(2, S, seed=17 + S)
+    jh, _ = jt.forward(FM32, jp, tokens=jnp.asarray(toks))
+    th, _ = tt.forward(FM32, tp, tokens=torch.from_numpy(toks), impl=impl)
+    np.testing.assert_allclose(
+        tt.logits_from_hidden(FM32, tp, th).numpy(),
+        np.asarray(jt.logits_from_hidden(FM32, jp, jh)), **RG_TOL)
+    jl, js = jt.prefill(FM32, jp, tokens=jnp.asarray(toks), context_len=32)
+    tl, ts = tt.prefill(FM32, tp, tokens=torch.from_numpy(toks),
+                        context_len=32, impl=impl)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **RG_TOL)
+    _assert_state_close(ts, js)
+    di, n, K = tssm.d_inner(FM32), FM32.ssm_state, FM32.ssm_conv
+    assert ts["blocks"]["0"]["h"].shape == (FM32.num_repeats, 2, di, n)
+    assert ts["blocks"]["0"]["conv"].shape == (FM32.num_repeats, 2, K - 1,
+                                               di)
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_fm_decode_steps_match(fm_model, impl):
+    """Several decode steps, each from the same state in both frameworks;
+    the port writes its state in place, fp32 under a bf16 cache dtype."""
+    jp, tp = fm_model
+    toks = _fm_tokens(2, 16, seed=20)
+    _, js = jt.prefill(FM32, jp, tokens=jnp.asarray(toks[:, :11]),
+                       context_len=32)
+    zeros = tt.init_decode_state(FM32, 2, 32, device="cpu")
+    assert {leaf: z.dtype for leaf, z in zeros["blocks"]["0"].items()} \
+        == {"h": torch.float32, "conv": torch.float32}
+    for s in range(11, 16):
+        feed = toks[:, s:s + 1]
+        t = np.full((2,), s, np.int32)
+        ts = _to_torch_tree(js)
+        jl, js = jt.decode_step(FM32, jp, js, jnp.asarray(feed),
+                                jnp.asarray(t), attn_impl=impl)
+        tl, ts2 = tt.decode_step(FM32, tp, ts, torch.from_numpy(feed),
+                                 torch.from_numpy(t), attn_impl=impl)
+        assert ts2 is ts
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **RG_TOL)
+        _assert_state_close(ts2, js)
+
+
+def test_fm_bf16_compute_logits_close():
+    """At the config's own bf16 compute (A_log and D stay fp32 in both),
+    logits agree to a bf16-sized tolerance, as for qwen2."""
+    base = jconfigs.get_reduced("falcon-mamba-7b")
+    jp = jt.init_params(base, jax.random.key(0))
+    tp = convert.params_from_numpy(base, _np_tree(jp), device="cpu")
+    toks = _fm_tokens(2, 9, seed=21)
+    jl, _ = jt.prefill(base, jp, tokens=jnp.asarray(toks), context_len=16)
+    tl, _ = tt.prefill(base, tp, tokens=torch.from_numpy(toks),
+                       context_len=16)
+    assert tl.dtype == torch.bfloat16
+    np.testing.assert_allclose(tl.float().numpy(),
+                               np.asarray(jl, np.float32), rtol=0, atol=0.1)

@@ -2,7 +2,8 @@
 serve program, and import hygiene.
 
 Engine invariants are ported from ``tests/test_engine.py`` (the
-attention-only and RecurrentGemma cases); "solo" is the port's own
+attention-only, RecurrentGemma and Falcon-Mamba cases); "solo" is the
+port's own
 ``generate``. Greedy
 tokens are also held against the JAX package at fp32 compute, where they
 are exact; sampled paths are checked for sync invariance and for their
@@ -482,6 +483,82 @@ def test_rg_generate_refuses_padded_rows(rg_params):
                            lengths=np.array([6, 3], np.int32))
 
 
+# -- Falcon-Mamba (Mamba-1 blocks) through the engine ---------------------------
+
+FM = jconfigs.get_reduced("falcon-mamba-7b")
+
+
+@pytest.fixture(scope="module")
+def fm_params():
+    jp = jt.init_params(FM, jax.random.key(2))
+    return convert.params_from_numpy(FM, jax.tree.map(np.asarray, jp),
+                                     device="cpu")
+
+
+def _fm_prompts(lens, seed):
+    return _prompts(lens, seed=seed, vocab=FM.vocab_size)
+
+
+@pytest.mark.parametrize("sync_every", [1, 8])
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_fm_fused_and_flash_match_solo(fm_params, sync_every, impl):
+    """Exact-length admission keeps the per-row SSM and conv state
+    correct, including prompts shorter than the conv tail."""
+    prompts = _fm_prompts([5, 2, 12], seed=31)
+    engine = _engine(fm_params, cfg=FM, sync_every=sync_every,
+                     decode_impl=impl)
+    futs = [engine.submit(p) for p in prompts]
+    _run(engine, futs)
+    for p, f in zip(prompts, futs):
+        np.testing.assert_array_equal(
+            f.result(), _solo(fm_params, p, cfg=FM, impl=impl))
+
+
+def test_fm_paged_knobs_keep_per_row_state(fm_params):
+    """No attention layer to page: the knobs are accepted, the per-row
+    state runs underneath, and chunked prefill is gated off."""
+    prompts = _fm_prompts([5, 9, 12, 7], seed=32)
+    engine = _engine(fm_params, cfg=FM, sync_every=4, page_size=8,
+                     num_pages=12, prefill_chunk=4)
+    futs = [engine.submit(p) for p in prompts]
+    _run(engine, futs)
+    for p, f in zip(prompts, futs):
+        np.testing.assert_array_equal(f.result(),
+                                      _solo(fm_params, p, cfg=FM))
+    assert "pages_total" not in engine.stats()
+
+
+def test_fm_engine_matches_jax_engine():
+    """The JAX ServeEngine and the port's give the same greedy tokens for
+    Falcon-Mamba at fp32 compute (tests/test_engine.py's case)."""
+    cfg = dataclasses.replace(FM, compute_dtype="float32")
+    jp = jt.init_params(cfg, jax.random.key(5))
+    tp = convert.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+    prompts = _fm_prompts([5, 19, 2, 11], seed=33)
+    kw = dict(num_slots=2, context_len=32, max_new=6, sync_every=4)
+    outs = []
+    for eng in (JaxServeEngine(cfg, jp, **kw),
+                ServeEngine(cfg, tp, device="cpu", **kw)):
+        futs = [eng.submit(p) for p in prompts]
+        _run(eng, futs)
+        outs.append([f.result() for f in futs])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_fm_generate_refuses_padded_rows_and_takes_equal_lengths(fm_params):
+    prompt = torch.from_numpy(np.stack(_fm_prompts([6, 6], seed=34)))
+    with pytest.raises(ValueError, match="recurrent state"):
+        serve_lib.generate(FM, fm_params, prompt, 2, context_len=12,
+                           lengths=np.array([6, 3], np.int32))
+    out = serve_lib.generate(FM, fm_params, prompt, 2, context_len=12,
+                             lengths=np.array([6, 6], np.int32))
+    np.testing.assert_array_equal(
+        out.numpy(), serve_lib.generate(FM, fm_params, prompt, 2,
+                                        context_len=12).numpy())
+
+
 # -- serve program --------------------------------------------------------------
 
 def test_engine_server_generate_returns_numpy():
@@ -507,6 +584,18 @@ def test_build_program_serves_every_request(tmp_path, page_size):
     got = json.loads(summary.read_text())
     assert got["count"] == 6
     assert got["out_lens"] == [10] * 6
+
+
+def test_fm_build_program_serves_every_request(tmp_path):
+    """The Launchpad program serves reduced Falcon-Mamba on the CPU."""
+    summary = tmp_path / "meter.json"
+    program = tserve.build_program(FM, num_clients=2, requests_per_client=2,
+                                   prompt_len=5, max_new=3,
+                                   meter_json=str(summary), device="cpu")
+    lp.launch_and_wait(program, timeout_s=120)
+    got = json.loads(summary.read_text())
+    assert got["count"] == 4
+    assert got["out_lens"] == [8] * 4
 
 
 def test_fabric_options_raise_not_implemented():
@@ -552,7 +641,7 @@ def test_port_imports_no_jax_and_no_repro():
         from repro_torch import configs
         from repro_torch.models import transformer
         from repro_torch.serve import decode
-        for arch in ("qwen2-1.5b", "recurrentgemma-2b"):
+        for arch in ("qwen2-1.5b", "recurrentgemma-2b", "falcon-mamba-7b"):
             cfg = configs.get_reduced(arch)
             params = transformer.init_params(cfg, seed=0, device="cpu")
             out = decode.generate(cfg, params,
