@@ -7,7 +7,8 @@ each of which ends the run with a non-zero exit on failure:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions;
-2. build: compile every kernel from ``src/repro_torch/kernels/csrc``;
+2. build: compile every kernel from ``src/repro_torch/kernels/csrc``,
+   and report ptxas' registers and spills of the K1/K2 and K3 instances;
 3. kernels: hold each CUDA kernel (K1 flash-decode, K2 paged
    flash-decode, K3 prefill flash attention, K4 RG-LRU scan, K5 Mamba-1
    selective scan) against its plain PyTorch version on the card at the
@@ -36,6 +37,8 @@ import argparse
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -117,6 +120,41 @@ def phase_build() -> None:
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     (outdir / "nvcc_ptxas.log").write_text(_build.build_log)
+    emit({"phase": "ptxas", **_ptxas_stats(_build.build_log)})
+
+
+def _ptxas_stats(log: str) -> dict:
+    """Registers and spill bytes of each K1/K2 and K3 instance, from
+    ``nvcc -Xptxas -v``, and every ptxas line that names wgmma (it warns
+    there when it has to serialize the tensor-core instructions)."""
+    stats, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        if not name or not re.search(r"flash_tc_kernel|flash_kernel|"
+                                     r"decode_kernel", name):
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            stats.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            stats.setdefault(name, {})["registers"] = int(m.group(1))
+    if stats and shutil.which("c++filt"):
+        names = list(stats)
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+        if len(out) == len(names):
+            stats = {d: stats[n] for n, d in zip(names, out)}
+    return {"kernels": stats,
+            "wgmma_notes": [ln.strip() for ln in log.splitlines()
+                            if "wgmma" in ln]}
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +338,8 @@ def _decode_case(gen, B, H, KV, dh, L, q_dtype, lengths, errors) -> dict:
         library_call = "none: SDPA takes q, k and v in one dtype"
     return {**c, "dropped_tile_over_tol": margin,
             "ms": _time_ms(lambda: dec.decode_attention(q, k, v, valid)),
+            "device_ms": _device_ms(lambda: dec.decode_attention(q, k, v,
+                                                                 valid)),
             "plain_ms": _time_ms(lambda: ref.decode_attention(q, k, v,
                                                               valid)),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -370,8 +410,6 @@ def phase_kernels() -> list[dict]:
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:86",
         "launches": None, "launches_by_path": None, **main,
-        "device_ms": _device_ms(lambda: dec.decode_attention(q, k, v,
-                                                             valid)),
         "bound_rate": "3.35 TB/s (H100 SXM datasheet)",
         "other_shapes": rg,
     })
@@ -448,6 +486,7 @@ def _flash_attention_record(gen, errors) -> dict:
     edges = [  # B, Sq, Sk, H, KV, dh, causal, window, dtype
         (2, 1000, 1000, 8, 2, 128, True, None, torch.bfloat16),
         (2, 128, 640, 8, 1, 64, True, 300, torch.bfloat16),
+        (1, 300, 1000, 4, 2, 256, True, 130, torch.bfloat16),
         (1, 333, 333, 4, 4, 64, False, None, torch.bfloat16),
         (3, 200, 200, 4, 2, 16, True, 50, torch.float32),
         (1, 500, 777, 6, 3, 64, True, None, torch.float32),
@@ -494,6 +533,8 @@ def _flash_attention_record(gen, errors) -> dict:
         shapes[label] = {
             **c, "dropped_tile_over_tol": margin,
             "ms": _time_ms(lambda: fa.flash_attention(
+                q, k, v, causal=True, window=window)),
+            "device_ms": _device_ms(lambda: fa.flash_attention(
                 q, k, v, causal=True, window=window)),
             "plain_ms": _time_ms(lambda: ref.flash_attention(
                 q, k, v, True, window), iters=10),

@@ -159,7 +159,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.repro_decode_attention.argtypes = [
         I, I, I,                      # q dtype, kv dtype, dh
         P, P, P, P,                   # q, k, v, valid
-        P, P, P, P,                   # out, m, l, acc scratch
+        P, P, P, P, P,                # out, m, l, acc scratch, counters
         I, I, I, I,                   # B, H, KV, L
         I, I, F,                      # split_len, n_splits, sm_scale
         P]                            # stream
@@ -167,18 +167,20 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.repro_paged_decode_attention.argtypes = [
         I, I, I,                      # q dtype, kv dtype, dh
         P, P, P, P, P,                # q, k pages, v pages, pages, valid
-        P, P, P, P,                   # out, m, l, acc scratch
+        P, P, P, P, P,                # out, m, l, acc scratch, counters
         I, I, I, I, I,                # B, H, KV, ps, n_log
         I, I, F,                      # split_len, n_splits, sm_scale
         P]                            # stream
     lib.repro_paged_decode_attention.restype = I
-    lib.repro_flash_attention.argtypes = [
-        I, I,                         # dtype, dh
-        P, P, P, P,                   # q, k, v, out
-        I, I, I, I, I,                # B, Sq, Sk, H, KV
-        I, I, F,                      # causal, window, sm_scale
-        P]                            # stream
-    lib.repro_flash_attention.restype = I
+    for name in ("repro_flash_attention_f32", "repro_flash_attention_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            I,                        # dh
+            P, P, P, P,               # q, k, v, out
+            I, I, I, I, I,            # B, Sq, Sk, H, KV
+            I, I, F,                  # causal, window, sm_scale
+            P]                        # stream
+        fn.restype = I
     lib.repro_rglru_scan.argtypes = [
         I,                            # dtype
         P, P, P, P, P,                # a, x, h0, y, h_last

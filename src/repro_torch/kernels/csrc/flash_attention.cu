@@ -2,8 +2,8 @@
 // GQA attention over a whole sequence.
 //
 // Replaces the Pallas TPU kernel of the JAX package:
-//   repro_flash_attention  <- repro/kernels/flash_attention.py,
-//                             _flash_kernel / flash_attention
+//   repro_flash_attention_bf16 / _f32
+//       <- repro/kernels/flash_attention.py, _flash_kernel / flash_attention
 //
 // Computes, for each row b, query i (at position i + Sk - Sq: queries
 // are right-aligned when Sq < Sk) and head h (KV head h / G, G = H/KV),
@@ -13,35 +13,71 @@
 // explicitly, and the finalize divides by max(l, 1e-30), as the Pallas
 // kernel does.
 //
-// What bounds it: two products of a 64-query tile against every visible
-// 64-key tile, O(S^2 dh) operations on O(S dh) bytes, so at prefill
-// lengths it is bound by operations, not bytes. This first version does
-// them as fp32 FMAs from shared memory (tensor cores -- mma/wgmma -- are
-// later work), so it runs far above the tensor-core bound.
+// What bounds it: two products of a query tile against every visible
+// key tile, O(S^2 dh) operations on O(S dh) bytes, so at prefill lengths
+// it is bound by operations, not bytes: on the H100 by the tensor cores'
+// 989 TFLOP/s in bf16.
 //
-// The design:
-//   * one block per (query tile, query head, row); K/V are read through
-//     h / G, as the Pallas index_map does, and the heaviest (latest)
-//     causal tiles are scheduled first;
-//   * tile skipping is the k loop's bounds: from the first tile that can
-//     hold a key inside the window to the last causal tile (the Pallas
-//     kernel's pl.when(visible));
-//   * 256 threads as a 16 x 16 grid, each owning a 4 x 4 block of scores
-//     and 4 rows x dh/16 columns of the output accumulator, so the
-//     softmax statistics of a row stay within 16 neighbouring lanes
-//     (shuffle reductions) and the rescale by alpha needs no exchange;
-//   * Q and K are staged transposed ([dh][tile], fp32) so each score step
-//     reads two float4s for 16 FMAs; V row-major with rows padded by 16
-//     bytes so the staging stores are free of bank conflicts;
-//   * ragged Sq and Sk are masked (the Pallas kernel needs S % block == 0):
-//     out-of-range keys load as zeros and are masked, out-of-range query
-//     rows are computed and not stored.
+// Two kernels, chosen by dtype (the C entry points below; the wrapper
+// calls one or the other):
+//
+// bf16 -- flash_tc_kernel, on the tensor cores (wgmma):
+//   * one block per (query tile, query head, row): one warpgroup of 128
+//     threads and 64 query rows up to dh 128, two sharing the K/V tiles
+//     at dh 256 (see Cfg); K/V are read through h / G; the query tile is
+//     the slowest grid dimension, so the heaviest (latest) causal tiles
+//     of every head are scheduled first;
+//   * S = Q K^T is a wgmma m64n64k16 chain with Q and the K tile in
+//     shared memory (both K-major, as they are stored); the fp32 scores,
+//     the row max and the row sum stay in registers, each row in one quad
+//     of lanes (the wgmma accumulator layout);
+//   * P is rounded to bf16 in registers and is the A operand of the P V
+//     wgmma (m64n{dh}k16, V MN-major from shared memory); the fp32 output
+//     accumulator stays in registers. The JAX model's dense path and SDPA
+//     round P to bf16 as well;
+//   * the softmax, not the tensor cores, sets the pace: a 64 x 64 tile is
+//     4096 exponentials at 16 a clock per SM, half the time of its
+//     2 x 64 x 64 x 128 multiply-adds at about 2048 a clock, and the max,
+//     sum, select and rescale instructions around them cost more. So the
+//     scale is folded into the exponent's FMA, exp2 is one ex2.approx instruction,
+//     the mask is applied only on tiles that straddle the diagonal, the
+//     window edge or the end of the keys (a second, unmasked copy of the
+//     update runs on the rest), and the output is rescaled only when a
+//     row's max moved (alpha is exactly 1 otherwise);
+//   * K/V tiles of 64 keys go through a two-stage ring in shared memory,
+//     kept in bf16 and written by 16-byte cp.async in the 128-byte swizzle
+//     that the descriptors name; tile t+1's copies are issued while tile
+//     t's S product runs;
+//   * up to dh 128 a warpgroup issues S_t and P_{t-1} V_{t-1} together
+//     and runs tile t's softmax while the value product is on the tensor
+//     cores (at dh 256 the registers hold no second P: one product, then
+//     the softmax, then the other);
+//   * head dims below 64 are zero-padded to one 64-column slab;
+//   * the k loop runs from the first tile that can hold a key inside the
+//     window to the last causal tile (the Pallas kernel's pl.when), and a
+//     warpgroup skips a tile none of its rows sees;
+//   * ragged Sq and Sk: loads past the end are zero-filled, keys past Sk
+//     masked, query rows past Sq computed and not stored.
+//
+// fp32 -- flash_kernel, fp32 FMAs from shared memory. fp32 is the parity
+// dtype (greedy tokens are held exact at fp32 compute), and TF32 tensor
+// cores would keep only about three digits, so it stays off them:
+//   * one block per (64-query tile, query head, row), 256 threads as a
+//     16 x 16 grid, each owning a 4 x 4 block of scores and 4 rows x dh/16
+//     columns of the output accumulator, so the softmax statistics of a
+//     row stay within 16 neighbouring lanes (shuffle reductions) and the
+//     rescale by alpha needs no exchange;
+//   * Q and K are staged transposed ([dh][tile]) so each score step reads
+//     two float4s for 16 FMAs; V row-major with rows padded by 16 bytes so
+//     the staging stores are free of bank conflicts; the same tile
+//     skipping and ragged-edge masking as above.
 //
 // Built by repro_torch/kernels/_build.py with nvcc into a shared library
-// with a plain C interface; the entry point launches on the given stream
+// with a plain C interface; each entry point launches on the given stream
 // and returns cudaGetLastError().
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -268,35 +304,402 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T, int DH>
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BK = 64;            // keys per tile
+constexpr int STAGES = 2;         // depth of the K/V ring
+
+// A block has NWG warpgroups of 64 query rows each, sharing the K/V
+// tiles. Up to dh 128 a block is one warpgroup: two blocks fit an SM and
+// run unsynchronized, so one's softmax overlaps the other's products,
+// and causal work is cut finer. At dh 256 the ring takes 128 KB, so one
+// block of two warpgroups fills the SM.
+template <int DH>
+struct Cfg {
+  static constexpr int NWG = DH <= 128 ? 1 : 2;
+  static constexpr int BQ = 64 * NWG;                  // queries per block
+  static constexpr int NT = 128 * NWG;                 // threads
+  static constexpr int DP = DH < 64 ? 64 : DH;         // padded head dim
+  static constexpr uint32_t Q = BQ * DP * 2;           // bytes of the Q tile
+  static constexpr uint32_t KV = BK * DP * 2;          // of one K or V tile
+  static constexpr size_t bytes = Q + 2 * STAGES * KV + 1024;  // + alignment
+};
+
+// 2^x on the special-function unit (one instruction; denormals flush).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online-softmax update of one tile of scores s (a thread's 32 wgmma
+// accumulator entries, two rows of 16: entry i is row (i / 2) % 2) in
+// base 2: the rows' max m and sum l, alpha = 2^(m_old - m_new), and s
+// replaced by the probabilities, exactly 0 where bit i of ok is clear
+// (ALL: no entry is masked). Each row's four lanes are a quad.
+template <bool ALL>
+__device__ __forceinline__ void online_softmax(float (&s)[32], uint32_t ok,
+                                               float scale_log2,
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2]) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (!ALL && !((ok >> i) & 1)) s[i] = NEG_INF;
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(FULL, mx[j], 1));
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(FULL, mx[j], 2));
+    const float m_new = fmaxf(m[j], mx[j] * scale_log2);
+    alpha[j] = ex2(m[j] - m_new);
+    m[j] = m_new;
+  }
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float p = ex2(fmaf(s[i], scale_log2, -m[(i / 2) % 2]));
+    if (!ALL) p = (ok >> i) & 1 ? p : 0.f;           // masked -> exactly 0
+    s[i] = p;
+    ps[(i / 2) % 2] += p;
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + ps[j];
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// cp.async the [R x DH] bf16 tile whose row r starts at g + r * stride
+// into swizzled slabs at shared address dst; rows >= n_rows and columns
+// >= DH are zero-filled.
+template <int R, int DH>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* g,
+                                          int64_t stride, int n_rows,
+                                          int tid) {
+  constexpr int CPR = Cfg<DH>::DP / 8;             // 16-byte chunks per row
+  constexpr int NT = Cfg<DH>::NT;
+  static_assert(R * CPR % NT == 0, "whole passes over the tile");
+#pragma unroll
+  for (int it = 0; it < R * CPR / NT; ++it) {
+    const int i = tid + it * NT, r = i / CPR, c = i % CPR;
+    const bool ok = r < n_rows && c * 8 < DH;
+    cp_async16(dst + swz_offset<R>(r, c * 8), ok ? g + r * stride + c * 8 : g,
+               ok ? 16 : 0);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(Cfg<DH>::NT, 1)
+    flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
+                    int KV, int causal, int window, float scale_log2) {
+  using S = Cfg<DH>;
+  constexpr int DP = S::DP, BQ = S::BQ;
+  constexpr int NO = DP / 2;      // output accumulators per thread
+
+  const int qt = gridDim.z - 1 - blockIdx.z;   // heaviest tiles first,
+  const int h = blockIdx.x, b = blockIdx.y;     // over every head and row
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t sQ = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t sKV = sQ + S::Q;  // stage s: K at sKV + 2 s KV, V after it
+
+  const int q0 = qt * BQ;
+  const int off = Sk - Sq;                        // right alignment
+  const int64_t q_row = (int64_t)H * DH;          // elements between queries
+  const int64_t kv_row = (int64_t)KV * DH;        // ... between keys
+  const __nv_bfloat16* qb =
+      q + ((int64_t)b * Sq + q0) * q_row + (int64_t)h * DH;
+  const __nv_bfloat16* kb = k + (int64_t)b * Sk * kv_row + (int64_t)kvh * DH;
+  const __nv_bfloat16* vb = v + (int64_t)b * Sk * kv_row + (int64_t)kvh * DH;
+
+  // Visible key range of the block's queries, in whole tiles.
+  const int q_lo = q0 + off;
+  const int q_hi = min(q0 + BQ, Sq) - 1 + off;
+  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int k_end = causal ? min(Sk, q_hi + 1) : Sk;
+  const int t_begin = k_begin / BK;
+  const int t_end = k_end > k_begin ? (k_end + BK - 1) / BK : t_begin;
+
+  // K and V rings: tile t's K in stage t % STAGES of the first, its V in
+  // the same stage of the second.
+  const uint32_t sK = sQ + S::Q, sV = sK + STAGES * S::KV;
+  auto load = [&](uint32_t ring, const __nv_bfloat16* g, int t) {
+    load_tile<BK, DH>(ring + (t % STAGES) * S::KV,
+                      g + (int64_t)t * BK * kv_row, kv_row, Sk - t * BK, tid);
+  };
+  load_tile<BQ, DH>(sQ, qb, q_row, Sq - q0, tid);
+  if (t_begin < t_end) {
+    load(sK, kb, t_begin);
+    if (S::NWG > 1) load(sV, vb, t_begin);
+  }
+  cp_async_commit();
+
+  // This warpgroup's query positions are w_lo..w_hi (none if w_hi < w_lo);
+  // the thread holds rows r and r + 8 of them, and in each 8-column block
+  // of a wgmma accumulator the columns cq and cq + 1.
+  const int wq0 = q0 + 64 * wg;
+  const int w_lo = wq0 + off, w_hi = min(wq0 + 64, Sq) - 1 + off;
+  const int r = 16 * warp + lane / 4, cq = 2 * (lane % 4);
+  const int pos[2] = {wq0 + r + off, wq0 + r + 8 + off};
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  // Every thread's copies landed, made visible to the tensor cores.
+  auto tiles_ready = [&]() {
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();
+  };
+  // Issue S = Q K_t^T over the head dim, 16 columns a step.
+  auto issue_s = [&](int t, float (&s)[32]) {
+    const uint32_t sk = sK + (t % STAGES) * S::KV;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_m64n64k16(
+          s,
+          sw128_desc(sQ + (kk / 4) * (BQ * 128) + wg * (64 * 128) +
+                         (kk % 4) * 32, 16, 1024),
+          sw128_desc(sk + (kk / 4) * (BK * 128) + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+    wgmma_commit();
+  };
+  // Issue O += P V_t, 16 keys a step; V MN-major: 64-column slabs BK * 128
+  // bytes apart, 8-key groups 1024 bytes apart.
+  auto issue_pv = [&](int t, uint32_t (&pa)[4][4]) {
+    const uint32_t sv = sV + (t % STAGES) * S::KV;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_rs_m64k16(o, pa[j], sw128_desc(sv + j * 16 * 128, BK * 128, 1024));
+    wgmma_commit();
+  };
+  // Tile t's online-softmax update: s to probabilities, in bf16 as the A
+  // operand (the 16-key slice j is entries 8j..8j+7), and alpha. Entry i
+  // is row r + 8 ((i / 2) % 2), key k0 + 8 (i / 4) + cq + i % 2; the mask
+  // is applied only on tiles that straddle an edge.
+  auto softmax = [&](int t, float (&s)[32], uint32_t (&pa)[4][4],
+                     float (&alpha)[2]) {
+    const int k0 = t * BK;
+    const bool full = k0 + BK <= Sk && (!causal || k0 + BK - 1 <= w_lo) &&
+                      (window <= 0 || w_hi - k0 < window);
+    if (full) {
+      online_softmax<true>(s, 0u, scale_log2, m, l, alpha);
+    } else {
+      uint32_t ok = 0xffffffffu;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i / 4) + cq + i % 2;
+        const int diff = pos[(i / 2) % 2] - key;
+        if (!(key < Sk && (!causal || diff >= 0) &&
+              (window <= 0 || diff < window)))
+          ok &= ~(1u << i);
+      }
+      online_softmax<false>(s, ok, scale_log2, m, l, alpha);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
+  };
+  // Rescale the output only where a row's max moved (alpha is exactly 1
+  // elsewhere).
+  auto rescale = [&](const float (&alpha)[2]) {
+    if (__any_sync(FULL, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o[i] *= alpha[(i / 2) % 2];
+    }
+  };
+
+  float s[32], alpha[2];
+  uint32_t pa[2][4][4];           // P of a tile in bf16, two buffers
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  if constexpr (S::NWG == 1) {
+    // The block is one warpgroup, so every tile of [t_begin, t_end) is
+    // visible to it, and there is at least one. Step t issues S_t and,
+    // behind it, O += P_{t-1} V_{t-1}, then runs tile t's softmax while
+    // the tensor cores do the value product. V_t loads one step after
+    // K_t; each stage is refilled only after the product that read it.
+    // The wgmma operands are fenced before each issue, so that no write
+    // to them lands inside a group in flight (ptxas would serialize it).
+    tiles_ready();
+    fence_regs(s);
+    wgmma_fence();
+    issue_s(t_begin, s);
+    if (t_begin + 1 < t_end) load(sK, kb, t_begin + 1);
+    load(sV, vb, t_begin);
+    cp_async_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(t_begin, s, pa[0], alpha);
+    // Two steps a pass, so that the two P buffers swap roles without a
+    // register copy.
+    auto step = [&](int t, uint32_t (&p_prev)[4][4], uint32_t (&p_next)[4][4]) {
+      tiles_ready();            // K_t, V_{t-1} in; K_{t-1}, V_{t-2} read
+      fence_regs(o);
+      fence_regs(p_prev);
+      fence_regs(s);
+      wgmma_fence();
+      issue_s(t, s);
+      issue_pv(t - 1, p_prev);
+      if (t + 1 < t_end) load(sK, kb, t + 1);
+      load(sV, vb, t);
+      cp_async_commit();
+      wgmma_wait<1>();          // S_t done; the value product runs on
+      fence_regs(s);
+      softmax(t, s, p_next, alpha);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p_prev);       // unwritten until its product ended
+      rescale(alpha);
+    };
+    int t = t_begin + 1;
+    for (; t + 1 < t_end; t += 2) {
+      step(t, pa[0], pa[1]);
+      step(t + 1, pa[1], pa[0]);
+    }
+    if (t < t_end) {
+      step(t, pa[0], pa[1]);
+      tiles_ready();
+      fence_regs(o);
+      fence_regs(pa[1]);
+      wgmma_fence();
+      issue_pv(t_end - 1, pa[1]);
+    } else {
+      tiles_ready();
+      fence_regs(o);
+      fence_regs(pa[0]);
+      wgmma_fence();
+      issue_pv(t_end - 1, pa[0]);
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+  } else {
+    // Two warpgroups share each tile; a warpgroup skips (warpgroup-
+    // uniformly) a tile none of its rows sees. Tile t+1's copies are
+    // issued while the S product of tile t runs.
+    for (int t = t_begin; t < t_end; ++t) {
+      tiles_ready();            // tile t in place; tile t-1 consumed
+      const int k0 = t * BK;
+      if (w_hi < w_lo || (causal && k0 > w_hi) ||
+          (window > 0 && k0 + BK - 1 <= w_lo - window)) {
+        if (t + 1 < t_end) {
+          load(sK, kb, t + 1);
+          load(sV, vb, t + 1);
+        }
+        cp_async_commit();
+        continue;
+      }
+      fence_regs(s);
+      wgmma_fence();
+      issue_s(t, s);
+      if (t + 1 < t_end) {
+        load(sK, kb, t + 1);
+        load(sV, vb, t + 1);
+      }
+      cp_async_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax(t, s, pa[0], alpha);
+      rescale(alpha);
+      fence_regs(o);
+      fence_regs(pa[0]);
+      wgmma_fence();
+      issue_pv(t, pa[0]);
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+  }
+  cp_async_wait_all();
+
+  // Finalize: the row sum over its quad, then acc / max(l, 1e-30).
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] += __shfl_xor_sync(FULL, l[j], 1);
+    l[j] += __shfl_xor_sync(FULL, l[j], 2);
+    const int row = wq0 + r + 8 * j;
+    if (row >= Sq) continue;
+    const float den = fmaxf(l[j], 1e-30f);
+    __nv_bfloat16* orow = out + ((int64_t)b * Sq + row) * q_row +
+                          (int64_t)h * DH;
+#pragma unroll
+    for (int c8 = 0; c8 < DP / 8; ++c8) {
+      const int col = 8 * c8 + cq;
+      if (col < DH)
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            pack_bf16(o[4 * c8 + 2 * j] / den, o[4 * c8 + 2 * j + 1] / den);
+    }
+  }
+}
+
+}  // namespace tc
+
+// TC: the bf16 tensor-core kernel; else the fp32 FMA kernel.
+template <bool TC, int DH>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          void* out, int B, int Sq, int Sk, int H, int KV,
                          int causal, int window, float sm_scale,
                          cudaStream_t stream) {
-  auto kern = flash_kernel<T, DH>;
-  const size_t smem = Smem<DH>::bytes;
-  if (smem > 48 * 1024) {
+  if constexpr (TC) {
+    using C = tc::Cfg<DH>;
+    auto kern = tc::flash_tc_kernel<DH>;
+    const size_t smem = C::bytes;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
+    dim3 grid(H, B, (Sq + C::BQ - 1) / C::BQ);   // query tile slowest
+    kern<<<grid, C::NT, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, causal, window,
+        sm_scale * 1.4426950408889634f);          // scores in base 2
+  } else {
+    auto kern = flash_kernel<float, DH>;
+    const size_t smem = Smem<DH>::bytes;
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    dim3 grid((Sq + BQ - 1) / BQ, H, B);
+    kern<<<grid, NT, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H,
+        KV, causal, window, sm_scale);
   }
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KV, causal,
-      window, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <bool TC>
 cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
                       void* out, int B, int Sq, int Sk, int H, int KV,
                       int causal, int window, float sm_scale,
                       cudaStream_t stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || window < 0)
+    return cudaErrorInvalidValue;
 #define REPRO_DH_CASE(D)                                                  \
   case D:                                                                 \
-    return launch_typed<T, D>(q, k, v, out, B, Sq, Sk, H, KV, causal,     \
-                              window, sm_scale, stream);
+    return launch_typed<TC, D>(q, k, v, out, B, Sq, Sk, H, KV, causal,    \
+                               window, sm_scale, stream);
   switch (dh) {
     REPRO_DH_CASE(16)
     REPRO_DH_CASE(32)
@@ -313,23 +716,25 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q [B,Sq,H,dh], k/v [B,Sk,KV,dh], out [B,Sq,H,dh], all in one dtype
-// (0 = float32, 1 = bfloat16). causal: 0/1; window: 0 = none, else the
-// number of positions a query sees (itself included).
-int repro_flash_attention(int dtype, int dh, const void* q, const void* k,
-                          const void* v, void* out, int B, int Sq, int Sk,
-                          int H, int KV, int causal, int window,
-                          float sm_scale, void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || window < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32)
-    return (int)launch_dh<float>(dh, q, k, v, out, B, Sq, Sk, H, KV, causal,
-                                 window, sm_scale, st);
-  if (dtype == BF16)
-    return (int)launch_dh<__nv_bfloat16>(dh, q, k, v, out, B, Sq, Sk, H, KV,
-                                         causal, window, sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+// q [B,Sq,H,dh], k/v [B,Sk,KV,dh], out [B,Sq,H,dh], all float32 (the FMA
+// kernel) or all bfloat16 (the tensor-core kernel). causal: 0/1; window:
+// 0 = none, else the number of positions a query sees (itself included).
+int repro_flash_attention_f32(int dh, const void* q, const void* k,
+                              const void* v, void* out, int B, int Sq, int Sk,
+                              int H, int KV, int causal, int window,
+                              float sm_scale, void* stream) {
+  return (int)launch_dh<false>(dh, q, k, v, out, B, Sq, Sk, H, KV, causal,
+                               window, sm_scale,
+                               static_cast<cudaStream_t>(stream));
+}
+
+int repro_flash_attention_bf16(int dh, const void* q, const void* k,
+                               const void* v, void* out, int B, int Sq,
+                               int Sk, int H, int KV, int causal, int window,
+                               float sm_scale, void* stream) {
+  return (int)launch_dh<true>(dh, q, k, v, out, B, Sq, Sk, H, KV, causal,
+                              window, sm_scale,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

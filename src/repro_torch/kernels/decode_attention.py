@@ -10,6 +10,11 @@ The kernels replace the Pallas ``_decode_kernel`` / ``_paged_kernel`` of
 ``repro/kernels/decode_attention.py``; unlike the Pallas flat kernel they
 take any cache length (the ragged last tile is masked), and the paged one
 strides the ``[P, ps, KV, dh]`` pool directly, with no transpose copy.
+
+One launch per call: the last block of each (row, KV head) combines the
+splits, counted in a per-device int32 workspace that every launch leaves
+at zero. Calls on one device therefore must not overlap on different
+streams (the serving engine issues them on one stream).
 """
 
 from __future__ import annotations
@@ -27,9 +32,14 @@ launches = {"decode_attention": 0, "paged_decode_attention": 0}
 
 TILE = 32                      # cache slots per tile (TILE in the .cu)
 HEAD_DIMS = (16, 32, 64, 128, 256)
-# Blocks per SM the split aims for: enough resident warps to keep loads
-# in flight on every SM.
-_BLOCKS_PER_SM = 4
+# The split plan's constants, picked from timings at the four decode
+# shapes of PERF.md (``python -m repro_torch.kernels.tune_decode``):
+_WARPS_PER_SM = 16     # resident warps the splits aim for on each SM
+_MIN_TILES = 2         # tiles a split holds at least
+_PARTIAL_SHARE = 4     # a split's K/V bytes >= this x its partials' bytes
+
+# Per device: the kernels' split counters (zero between calls).
+_COUNTERS: dict = {}
 
 
 def reset_launches() -> None:
@@ -41,12 +51,22 @@ def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_plan(L: int, rows: int, num_sms: int) -> tuple[int, int]:
-    """(split_len, n_splits): split the cache length so that
-    ``rows * n_splits`` blocks fill the card, in whole tiles."""
-    want = max(1, math.ceil(_BLOCKS_PER_SM * num_sms / rows))
+def split_plan(L: int, rows: int, group: int, kv_bytes: int,
+               num_sms: int) -> tuple[int, int]:
+    """(split_len, n_splits) for ``rows`` (row, KV head) pairs, each a
+    block of ``group`` warps, over ``L`` cache slots of ``kv_bytes``-byte
+    elements: whole tiles, at least ``_MIN_TILES`` of them (or the whole
+    cache) and enough that the split's K/V bytes are ``_PARTIAL_SHARE``
+    times its fp32 partials (``group`` x dh), and no more splits than
+    fill ``_WARPS_PER_SM`` warps on every SM."""
     tiles = math.ceil(L / TILE)
-    split_tiles = max(1, math.ceil(tiles / min(want, tiles)))
+    blocks_per_sm = max(1, _WARPS_PER_SM // group)
+    want = max(1, math.ceil(blocks_per_sm * num_sms / rows))
+    # partials group * dh * 4 bytes against split_tiles * TILE * dh * 2 *
+    # kv_bytes of K and V
+    min_tiles = max(_MIN_TILES, math.ceil(
+        _PARTIAL_SHARE * group * 4 / (TILE * 2 * kv_bytes)))
+    split_tiles = min(tiles, max(min_tiles, math.ceil(tiles / want)))
     split_len = split_tiles * TILE
     return split_len, math.ceil(L / split_len)
 
@@ -82,13 +102,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("k/v must be 16-byte aligned")
 
 
-def _scratch(q: torch.Tensor, n_splits: int):
+def _scratch(q: torch.Tensor, KV: int, n_splits: int) -> tuple:
+    """out, and the split partials m, l, acc and the counters (none for
+    one split, where the kernel finalizes in place)."""
     B, H, dh = q.shape
+    out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
+    if n_splits == 1:
+        return out, []
     f32 = dict(dtype=torch.float32, device=q.device)
-    return (torch.empty((B, H, dh), dtype=q.dtype, device=q.device),
-            torch.empty((B, H, n_splits), **f32),
-            torch.empty((B, H, n_splits), **f32),
-            torch.empty((B, H, n_splits, dh), **f32))
+    counters = _COUNTERS.get(q.device)
+    if counters is None or counters.numel() < B * KV:
+        counters = torch.zeros(B * KV, dtype=torch.int32, device=q.device)
+        _COUNTERS[q.device] = counters
+    return out, [torch.empty((B, H, n_splits), **f32),
+                 torch.empty((B, H, n_splits), **f32),
+                 torch.empty((B, H, n_splits, dh), **f32), counters]
+
+
+def _ptrs(ws: list) -> list:
+    """The scratch's pointers, null pointers without a split."""
+    return [t.data_ptr() for t in ws] or [None] * 4
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -106,13 +139,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if valid.shape != (B, L):
         raise ValueError(f"valid {tuple(valid.shape)} != {(B, L)}")
     sm_scale = sm_scale if sm_scale is not None else dh ** -0.5
-    split_len, n_splits = split_plan(L, B * KV, _num_sms(q.device))
-    out, m, l, acc = _scratch(q, n_splits)
+    split_len, n_splits = split_plan(L, B * KV, H // KV, k.element_size(),
+                                     _num_sms(q.device))
+    out, ws = _scratch(q, KV, n_splits)
     lib = _build.load()
     rc = lib.repro_decode_attention(
         _build.DTYPE_CODE[q.dtype], _build.DTYPE_CODE[k.dtype], dh,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), *_ptrs(ws),
         B, H, KV, L, split_len, n_splits, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_rc(rc, "decode_attention")
@@ -141,14 +175,16 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{tuple(valid.shape)} do not match B={B}, "
                          f"n*ps={n * ps}")
     sm_scale = sm_scale if sm_scale is not None else dh ** -0.5
-    split_len, n_splits = split_plan(n * ps, B * KV, _num_sms(q.device))
-    out, m, l, acc = _scratch(q, n_splits)
+    split_len, n_splits = split_plan(n * ps, B * KV, H // KV,
+                                     k_pages.element_size(),
+                                     _num_sms(q.device))
+    out, ws = _scratch(q, KV, n_splits)
     lib = _build.load()
     rc = lib.repro_paged_decode_attention(
         _build.DTYPE_CODE[q.dtype], _build.DTYPE_CODE[k_pages.dtype], dh,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         pages.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), *_ptrs(ws),
         B, H, KV, ps, n, split_len, n_splits, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_rc(rc, "paged_decode_attention")

@@ -8,9 +8,12 @@ and counts the launch. A tensor on the CPU goes to the plain version in
 fallback. The kernel has no backward pass yet, so a call that needs a
 gradient raises on every device.
 
-The kernel replaces the Pallas ``_flash_kernel`` of
+The kernels replace the Pallas ``_flash_kernel`` of
 ``repro/kernels/flash_attention.py``; unlike it, any Sq and Sk are taken
-(ragged tiles are masked).
+(ragged tiles are masked). The dtype picks the kernel (``ENTRY``): bf16
+runs on the tensor cores (wgmma, P rounded to bf16 before the value
+product, as the dense path and SDPA round it), float32 on fp32 FMAs,
+since float32 is the parity dtype and TF32 would keep three digits.
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ from repro_torch.kernels import _build, ref
 launches = {"flash_attention": 0}
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# The C entry point for each dtype: the tensor-core kernel for bf16, the
+# FMA kernel for float32.
+ENTRY = {torch.bfloat16: "repro_flash_attention_bf16",
+         torch.float32: "repro_flash_attention_f32"}
 
 
 def reset_launches() -> None:
@@ -43,7 +50,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError("flash-attention operands must be 16-byte "
                              "aligned")
-    if q.dtype not in _build.DTYPE_CODE or k.dtype != q.dtype \
+    if q.dtype not in ENTRY or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share one dtype, float32 or bfloat16; "
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -85,9 +92,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if Sq == 0 or Sk == 0 or B == 0:
         return out.zero_()
-    lib = _build.load()
-    rc = lib.repro_flash_attention(
-        _build.DTYPE_CODE[q.dtype], dh, q.data_ptr(), k.data_ptr(),
+    rc = getattr(_build.load(), ENTRY[q.dtype])(
+        dh, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, KV, int(causal),
         int(window or 0), float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)

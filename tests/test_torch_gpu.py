@@ -109,6 +109,7 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     (2, 200, 200, 4, 2, True, None),          # ragged S
     (1, 70, 333, 6, 1, True, 100),            # right-aligned, windowed
     (2, 65, 129, 4, 4, False, None),          # encoder
+    (1, 300, 1000, 4, 2, True, 130),          # ragged, windowed, Sq < Sk
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, dh, case):
     B, Sq, Sk, H, KV, causal, window = case
@@ -120,6 +121,45 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, dh, case):
     out = fa.flash_attention(q, k, v, causal=causal, window=window)
     assert fa.launches["flash_attention"] == before + 1
     _assert_matches_plain(out, ref.flash_attention(q, k, v, causal, window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # B, S, H, KV, dh, window: Qwen2-1.5B and RecurrentGemma-2B LOCAL
+    (1, 1536, 12, 2, 128, None),
+    (1, 3072, 10, 1, 256, 2048),
+])
+def test_cuda_flash_attention_full_prefill_shapes(cuda, case):
+    """bf16 (the tensor-core kernel) at the serving path's prefill shapes."""
+    B, S, H, KV, dh, window = case
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q = _randn(gen, (B, S, H, dh), torch.bfloat16, cuda)
+    k = _randn(gen, (B, S, KV, dh), torch.bfloat16, cuda)
+    v = _randn(gen, (B, S, KV, dh), torch.bfloat16, cuda)
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    _assert_matches_plain(out, ref.flash_attention(q, k, v, True, window))
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attention_repeats_bit_identical(cuda):
+    """Calls in a row give the same bits: the split kernel's counters go
+    back to 0 after each call. RecurrentGemma's decode shape (B=8, 10/1
+    heads, dh 256, L 2048) with an all-invalid row."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    B, H, KV, dh, L = 8, 10, 1, 256, 2048
+    q = _randn(gen, (B, H, dh), torch.bfloat16, cuda)
+    k = _randn(gen, (B, L, KV, dh), torch.bfloat16, cuda)
+    v = _randn(gen, (B, L, KV, dh), torch.bfloat16, cuda)
+    valid = torch.rand((B, L), generator=gen, device=cuda) < 0.7
+    valid[3] = False
+    _, n_splits = dec.split_plan(L, B * KV, H // KV, 2,
+                                 dec._num_sms(q.device))
+    assert n_splits > 1
+    outs = [dec.decode_attention(q, k, v, valid) for _ in range(3)]
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    assert torch.equal(outs[0][3], torch.zeros_like(outs[0][3]))
+    _assert_matches_plain(outs[0], ref.decode_attention(q, k, v, valid))
 
 
 @pytest.mark.gpu

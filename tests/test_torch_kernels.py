@@ -7,6 +7,9 @@ against the plain versions on a card in ``test_torch_gpu.py``). Inputs
 are made with numpy from a seed and handed to both frameworks.
 """
 
+import math
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -226,14 +229,39 @@ def test_dispatch_rules():
         attention._resolve_impl("pallas", q)
 
 
-@pytest.mark.parametrize("L,rows,sms", [(2048, 16, 132), (24, 8, 132),
-                                        (1000, 3, 132), (5, 1, 4),
-                                        (4096, 256, 132)])
-def test_split_plan_covers_cache_in_whole_tiles(L, rows, sms):
-    split_len, n_splits = dec.split_plan(L, rows, sms)
+@pytest.mark.parametrize("L,rows,group,kv_bytes,sms", [
+    (2048, 16, 6, 2, 132),       # Qwen2-1.5B decode, B=8
+    (2048, 8, 10, 2, 132),       # RecurrentGemma-2B decode, B=8
+    (2048, 1, 10, 2, 132),       # RecurrentGemma-2B decode, B=1
+    (24, 8, 6, 2, 132), (1000, 3, 4, 4, 132), (5, 1, 1, 4, 4),
+    (4096, 256, 32, 2, 132)])
+def test_split_plan_covers_cache_in_whole_tiles(L, rows, group, kv_bytes,
+                                                sms):
+    split_len, n_splits = dec.split_plan(L, rows, group, kv_bytes, sms)
     assert split_len % dec.TILE == 0
     assert (n_splits - 1) * split_len < L <= n_splits * split_len
-    assert rows * n_splits <= dec._BLOCKS_PER_SM * sms + rows
+    blocks_per_sm = max(1, dec._WARPS_PER_SM // group)
+    assert rows * n_splits <= blocks_per_sm * sms + rows
+    tiles = math.ceil(L / dec.TILE)
+    assert split_len // dec.TILE >= min(dec._MIN_TILES, tiles)
+    # a split's K/V bytes against its fp32 partials (per head dim)
+    assert (split_len * 2 * kv_bytes >= dec._PARTIAL_SHARE * group * 4
+            or n_splits == 1)
+
+
+def test_flash_attention_routes_by_dtype():
+    """bf16 goes to the tensor-core entry, float32 to the FMA entry: the
+    wrapper's table, and in the C source each entry point's launcher."""
+    assert fa.ENTRY == {torch.bfloat16: "repro_flash_attention_bf16",
+                        torch.float32: "repro_flash_attention_f32"}
+    src = (Path(fa.__file__).parent / "csrc" /
+           "flash_attention.cu").read_text()
+    for name, tc in (("repro_flash_attention_bf16", "true"),
+                     ("repro_flash_attention_f32", "false")):
+        body = src[src.index(f"int {name}("):]
+        body = body[:body.index("\n}\n")]
+        assert f"launch_dh<{tc}>" in body
+    assert "tc::flash_tc_kernel<DH>" in src.split("if constexpr (TC)")[1]
 
 
 def _flash_np(B, Sq, Sk, H, KV, dh, seed=0):
