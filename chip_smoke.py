@@ -8,7 +8,7 @@ each of which ends the run with a non-zero exit on failure:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions;
 2. build: compile every kernel from ``src/repro_torch/kernels/csrc``,
-   and report ptxas' registers and spills of the K1/K2 and K3 instances;
+   and report ptxas' registers and spills of every kernel instance;
 3. kernels: hold each CUDA kernel (K1 flash-decode, K2 paged
    flash-decode, K3 prefill flash attention, K4 RG-LRU scan, K5 Mamba-1
    selective scan) against its plain PyTorch version on the card at the
@@ -21,6 +21,8 @@ each of which ends the run with a non-zero exit on failure:
    tokens through the kernels must equal those of the plain PyTorch path
    (Qwen2 flat and paged; RecurrentGemma with a prompt longer than its
    window), and the prefill time per request is timed through both;
+   then one bf16 prefill per model at its longest prompt through the
+   kernels (median of 3, and the scan kernels' device time in it);
 5. serve: ``build_program`` (clients -> batcher -> engine server) on the
    thread launcher, in each config's own bf16: Qwen2 flat and paged,
    RecurrentGemma and Falcon-Mamba flat.
@@ -124,9 +126,10 @@ def phase_build() -> None:
 
 
 def _ptxas_stats(log: str) -> dict:
-    """Registers and spill bytes of each K1/K2 and K3 instance, from
-    ``nvcc -Xptxas -v``, and every ptxas line that names wgmma (it warns
-    there when it has to serialize the tensor-core instructions)."""
+    """Registers and spill bytes of each kernel instance (K1/K2, K3, K4,
+    K5), from ``nvcc -Xptxas -v``, and every ptxas line that names wgmma
+    (it warns there when it has to serialize the tensor-core
+    instructions)."""
     stats, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
@@ -135,7 +138,8 @@ def _ptxas_stats(log: str) -> dict:
             name = m.group(1)
             continue
         if not name or not re.search(r"flash_tc_kernel|flash_kernel|"
-                                     r"decode_kernel", name):
+                                     r"decode_kernel|rglru_kernel|"
+                                     r"ssm_kernel", name):
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -182,10 +186,12 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def _device_ms(fn, iters: int = 20) -> dict:
+def _device_ms(fn, iters: int = 20, every: bool = False) -> dict:
     """Device time per call of each CUDA kernel ``fn`` launches, from a
     ``torch.profiler`` trace, by kernel name (empty if the profiler saw no
-    device time). Back-to-back calls, warm L2: a breakdown, not a time."""
+    device time): the names ending in ``_kernel``, or ``every`` name
+    (PyTorch's kernels and copies too). Back-to-back calls, warm L2: a
+    breakdown, not a time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -199,8 +205,8 @@ def _device_ms(fn, iters: int = 20) -> dict:
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
         name = ev.key.split("<")[0].split("::")[-1].strip()
-        if us > 0 and name.endswith("_kernel"):
-            out[name] = us / iters / 1e3
+        if us > 0 and (every or name.endswith("_kernel")):
+            out[name] = out.get(name, 0.0) + us / iters / 1e3
     return out
 
 
@@ -553,36 +559,35 @@ def _flash_attention_record(gen, errors) -> dict:
             "other_shapes": shapes}
 
 
-def _rglru_inputs(gen, B, S, W, dtype):
-    a = (0.8 + 0.199 * torch.rand((B, S, W), generator=gen,
-                                  device="cuda")).to(dtype)
-    x = torch.randn((B, S, W), generator=gen, device="cuda").to(dtype)
-    h0 = torch.randn((B, W), generator=gen, device="cuda")
-    return a, x, h0
-
-
 def _rglru_scan_record(gen, errors) -> dict:
     """K4 against its plain loop: ragged S and W, bf16 a/x, and the main
     shape (RecurrentGemma-2B prefill: S=3072, W=2560, fp32 a/x as the
-    gates hand them over, non-zero h0); y and h_last both checked."""
-    from repro_torch.kernels import ref
+    gates hand them over, non-zero h0); y and h_last both checked, and
+    both must be bit-identical to the plain loop's."""
+    from repro_torch.kernels import ref, scan_inputs
     from repro_torch.kernels import rglru_scan as rg
 
-    for B, S, W, dtype in [(3, 1001, 2501, torch.float32),
+    bit_identical = {}
+    for B, S, W, dtype in [(2, 5, 2560, torch.float32),
+                           (3, 1001, 2501, torch.float32),
                            (2, 777, 2560, torch.bfloat16),
                            (1, 3072, 2560, torch.bfloat16)]:
-        a, x, h0 = _rglru_inputs(gen, B, S, W, dtype)
+        a, x, h0 = scan_inputs.rglru(gen, B, S, W, dtype, "cuda")
         (y, h), (ye, he) = rg.rglru_scan(a, x, h0), ref.rglru_scan(a, x, h0)
         name = f"K4 B={B} S={S} W={W} {dtype}"
         _check(f"{name} y", y, ye, errors)
         _check(f"{name} h_last", h, he, errors)
+        _bit_identical(f"{name} y", y, ye, bit_identical)
+        _bit_identical(f"{name} h_last", h, he, bit_identical)
 
     B, S, W = 1, 3072, 2560
-    a, x, h0 = _rglru_inputs(gen, B, S, W, torch.float32)
+    a, x, h0 = scan_inputs.rglru(gen, B, S, W, torch.float32, "cuda")
     (y, h), (ye, he) = rg.rglru_scan(a, x, h0), ref.rglru_scan(a, x, h0)
     name = f"K4 main B={B} S={S} W={W} fp32"
     c = _check(f"{name} y", y, ye, errors)
     _check(f"{name} h_last", h, he, errors)
+    _bit_identical(f"{name} y", y, ye, bit_identical)
+    _bit_identical(f"{name} h_last", h, he, bit_identical)
     half = S // 2
     y1, _ = ref.rglru_scan(a[:, :half], x[:, :half], h0)
     y2, _ = ref.rglru_scan(a[:, half:].contiguous(), x[:, half:].contiguous(),
@@ -596,7 +601,7 @@ def _rglru_scan_record(gen, errors) -> dict:
             "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
             "replaces": "src/repro/kernels/rglru_scan.py:63",
             "launches": None, "launches_by_path": None, **c,
-            "h_reset_over_tol": margin,
+            "h_reset_over_tol": margin, "bit_identical": bit_identical,
             "ms": _time_ms(lambda: rg.rglru_scan(a, x, h0)),
             "plain_ms": _time_ms(lambda: ref.rglru_scan(a, x, h0), iters=5,
                                  warmup=1),
@@ -606,23 +611,8 @@ def _rglru_scan_record(gen, errors) -> dict:
             "library_ms": None,
             "library_call": "none: no single PyTorch call computes a "
                             "linear recurrence",
-            "shape": dict(B=B, S=S, W=W, dtype="float32", h0="randn")}
-
-
-def _ssm_inputs(gen, B, S, Di, N, dtype):
-    """u in ``dtype``, the rest fp32 as the model hands them over, at its
-    scale: Δ a softplus, A = -(1..N) per channel (Falcon-Mamba's A_log),
-    B, C and D normal, non-zero h0."""
-    dev = "cuda"
-    u = torch.randn((B, S, Di), generator=gen, device=dev).to(dtype)
-    delta = torch.nn.functional.softplus(
-        torch.randn((B, S, Di), generator=gen, device=dev))
-    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(Di, 1)
-    Bc = torch.randn((B, S, N), generator=gen, device=dev)
-    Cc = torch.randn((B, S, N), generator=gen, device=dev)
-    D = torch.randn((Di,), generator=gen, device=dev)
-    h0 = torch.randn((B, Di, N), generator=gen, device=dev)
-    return u, delta, A, Bc, Cc, D, h0
+            "shape": dict(B=B, S=S, W=W, dtype="float32", h0="randn"),
+            "launch": rg.launch_config(torch.float32, B, W)}
 
 
 def _ssm_y_from_previous_h(u, delta, A, Bc, Cc, D, h0):
@@ -638,6 +628,14 @@ def _ssm_y_from_previous_h(u, delta, A, Bc, Cc, D, h0):
     return (torch.cat([first, z[:, :-1]], dim=1) + D * u.float()).to(u.dtype)
 
 
+def _bit_identical(name, got, want, record) -> None:
+    """Record whether ``got`` equals ``want`` bit for bit; fail if not."""
+    record[name] = bool(torch.equal(got, want))
+    if not record[name]:
+        fail(f"{name} is not bit-identical to the plain loop: max |err| "
+             f"{(got - want).abs().max().item()}")
+
+
 def _max_sm_clock_hz() -> float:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -651,9 +649,10 @@ def _ssm_scan_record(gen, errors) -> dict:
     block's channel tile, S of 1, 7 and 1001, B=3, all with non-zero h0;
     then the main shape (Falcon-Mamba-7B prefill: B=1, S=2048, Di=8192,
     N=16) with bf16 u as served and fp32 u as in the fp32 parity run; y
-    and h_last checked, h_last also for bit identity. Two wrong scans must
-    be rejected: h reset at S/2, and y_t read from h_{t-1}."""
-    from repro_torch.kernels import ref
+    and h_last checked, and both must be bit-identical to the plain
+    loop's. Two wrong scans must be rejected: h reset at S/2, and y_t
+    read from h_{t-1}."""
+    from repro_torch.kernels import ref, scan_inputs
     from repro_torch.kernels import ssm_scan as ss
 
     bit_identical = {}
@@ -662,22 +661,24 @@ def _ssm_scan_record(gen, errors) -> dict:
                                (2, 1001, 1000, 8, torch.bfloat16),
                                (3, 1001, 333, 4, torch.float32),
                                (3, 257, 8192, 16, torch.bfloat16)]:
-        args = _ssm_inputs(gen, B, S, Di, N, dtype)
+        args = scan_inputs.ssm(gen, B, S, Di, N, dtype, "cuda")
         (y, h), (ye, he) = ss.ssm_scan(*args), ref.ssm_scan(*args)
         name = f"K5 B={B} S={S} Di={Di} N={N} u {dtype}"
         _check(f"{name} y", y, ye, errors)
         _check(f"{name} h_last", h, he, errors)
-        bit_identical[name] = bool(torch.equal(h, he))
+        _bit_identical(f"{name} y", y, ye, bit_identical)
+        _bit_identical(f"{name} h_last", h, he, bit_identical)
 
     B, S, Di, N = 1, 2048, 8192, 16
     main, fp32_u = None, None
     for dtype in (torch.float32, torch.bfloat16):
-        args = _ssm_inputs(gen, B, S, Di, N, dtype)
+        args = scan_inputs.ssm(gen, B, S, Di, N, dtype, "cuda")
         (y, h), (ye, he) = ss.ssm_scan(*args), ref.ssm_scan(*args)
         name = f"K5 main B={B} S={S} Di={Di} N={N} u {dtype}"
         c = _check(f"{name} y", y, ye, errors)
         _check(f"{name} h_last", h, he, errors)
-        bit_identical[name] = bool(torch.equal(h, he))
+        _bit_identical(f"{name} y", y, ye, bit_identical)
+        _bit_identical(f"{name} h_last", h, he, bit_identical)
         u, delta, A, Bc, Cc, D, h0 = args
         half = S // 2
         y1, _ = ref.ssm_scan(u[:, :half], delta[:, :half], A, Bc[:, :half],
@@ -721,7 +722,8 @@ def _ssm_scan_record(gen, errors) -> dict:
             "library_ms": None,
             "library_call": "none: no PyTorch call computes a selective scan",
             "shape": dict(B=B, S=S, Di=Di, N=N,
-                          u_dtype=str(dtype).split(".")[1], h0="randn")}
+                          u_dtype=str(dtype).split(".")[1], h0="randn"),
+            "launch": ss.launch_config(dtype, N, B, Di)}
         if dtype == torch.bfloat16:
             main = timed
             main["device_ms"] = _device_ms(lambda: ss.ssm_scan(*args))
@@ -731,7 +733,7 @@ def _ssm_scan_record(gen, errors) -> dict:
             "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan.py:75",
             "launches": None, "launches_by_path": None, **main,
-            "h_last_bit_identical": bit_identical,
+            "bit_identical": bit_identical,
             "bound_rate": ("3.35 TB/s, 67 TFLOP/s fp32 (H100 SXM datasheet); "
                            f"{MUFU_PER_CLOCK_PER_SM} exp a clock per SM at "
                            "the max SM clock (CUDA guide, cc 9.0)"),
@@ -932,6 +934,51 @@ def _parity_falcon_mamba(cfg, params) -> tuple[dict, dict]:
     return info, {"flat sync=8": run}
 
 
+# bf16 prefill, as served: one prompt per model, at its parity phase's
+# longest length, through the kernels.
+BF16_PREFILL = {"recurrentgemma-2b": 3072, "falcon-mamba-7b": 2048}
+SCAN_KERNELS = ("rglru_kernel", "ssm_kernel")
+
+
+def _bf16_prefill(arch: str, n_tokens: int) -> dict:
+    """One B=1 prefill of ``n_tokens`` in the config's own bf16 through
+    the kernels: host clock around it ending in a synchronize (median of
+    3 after a warm-up), and one profiled run's device time, in all and in
+    the scan kernels, so that the scans' share of a served prefill is on
+    record."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    cfg = configs.get(arch)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, n_tokens)
+                           .astype(np.int32), device="cuda")[None]
+
+    def run():
+        transformer.prefill(cfg, params, tokens=toks, context_len=4096,
+                            impl="flash")
+    run()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    dev = _device_ms(run, iters=1, every=True)
+    scans = {k: dev[k] for k in SCAN_KERNELS if k in dev}
+    total = sum(dev.values())
+    del params
+    torch.cuda.empty_cache()
+    return {"prompt_len": n_tokens, "compute_dtype": cfg.compute_dtype,
+            "ms": sorted(times)[1], "ms_runs": times,
+            "device_ms_total": total, "scan_device_ms": scans,
+            "scan_share_of_device": sum(scans.values()) / total if total
+            else None,
+            "top_device_ms": dict(sorted(dev.items(), key=lambda kv: -kv[1])
+                                  [:8])}
+
+
 def phase_parity(device_line: str) -> dict:
     """Returns each flash run's launches, by path name."""
     import dataclasses
@@ -947,13 +994,15 @@ def phase_parity(device_line: str) -> dict:
         t0 = time.perf_counter()
         params = transformer.init_params(cfg, seed=0, device="cuda")
         info, runs = drive(cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        if arch in BF16_PREFILL:
+            info["bf16_prefill"] = _bf16_prefill(arch, BF16_PREFILL[arch])
         emit({"phase": "parity", "config": f"{arch} full width, fp32 "
               "compute, seeded random weights", **info, "launches": runs,
               "seconds": time.perf_counter() - t0, "device": device_line})
         paths.update({f"parity {arch} {label}": run
                       for label, run in runs.items()})
-        del params
-        torch.cuda.empty_cache()
     return paths
 
 

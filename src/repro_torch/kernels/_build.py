@@ -19,6 +19,7 @@ tensor whose gradient the kernels do not compute.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -98,14 +99,14 @@ def _spawn(cmd: list) -> tuple:
                                  stderr=subprocess.PIPE, text=True)
 
 
-def _compile(out: Path) -> None:
-    global build_seconds, build_log
+def compile_sources(srcs: list, include: Path, out: Path) -> str:
+    """Compile the ``.cu`` files ``srcs`` (headers from ``include``) into
+    the shared library ``out``: one ``nvcc -c`` per source, all started
+    together, then one link. Returns nvcc's report (``-Xptxas -v``)."""
     tag = f".tmp{os.getpid()}"
-    srcs = [p for p in _sources() if p.suffix == ".cu"]
-    objs = [out.parent / f"{p.stem}{tag}.o" for p in srcs]
+    objs = [out.parent / f"{Path(p).stem}{tag}.o" for p in srcs]
     tmp = out.with_suffix(tag)
-    t0 = time.perf_counter()
-    log = _run([_spawn([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c",
+    log = _run([_spawn([_nvcc(), *NVCC_FLAGS, "-I", str(include), "-c",
                         "-o", str(o), str(p)])
                 for p, o in zip(srcs, objs)])
     log += _run([_spawn([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
@@ -113,6 +114,14 @@ def _compile(out: Path) -> None:
     for o in objs:
         o.unlink()
     os.replace(tmp, out)                    # atomic: readers never see half
+    return log
+
+
+def _compile(out: Path) -> None:
+    global build_seconds, build_log
+    t0 = time.perf_counter()
+    log = compile_sources([p for p in _sources() if p.suffix == ".cu"], CSRC,
+                          out)
     build_seconds = time.perf_counter() - t0
     build_log = log
     (out.parent / "nvcc.log").write_text(build_log)
@@ -123,6 +132,15 @@ def check_rc(rc: int, name: str) -> None:
     runs, and a later synchronize would not report it)."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def launch_config(fn, keys: tuple, *args) -> dict:
+    """Call a ``repro_*_config`` entry point ``fn`` (its arguments but
+    the output array), which writes the launch its kernel's entry point
+    makes for the same arguments, one int per name in ``keys``."""
+    out = (ctypes.c_int * len(keys))()
+    check_rc(fn(*args, out), fn.__name__)
+    return dict(zip(keys, out))
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -152,6 +170,36 @@ def load() -> ctypes.CDLL:
         _bind(lib)
         _lib = lib
     return _lib
+
+
+@contextlib.contextmanager
+def library(lib: ctypes.CDLL):
+    """Within the block, every wrapper launches from ``lib`` (a build of
+    changed sources whose entry points are bound with ``bind_like``), not
+    from the repository's library: how ``tune_scan`` times a variant
+    through the wrappers."""
+    global _lib
+    base = load()
+    with _lock:
+        _lib = lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            _lib = base
+
+
+def bind_like(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Bind each entry point ``lib`` has as the repository's library binds
+    it (a variant may hold only some of the sources)."""
+    base = load()
+    # ctypes keeps each function it looked up in the library's __dict__,
+    # and _bind looked up every entry point.
+    for name, ref in vars(base).items():
+        if name.startswith("repro_") and hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = ref.argtypes, ref.restype
+    return lib
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -187,6 +235,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         I, I, I,                      # B, S, W
         P]                            # stream
     lib.repro_rglru_scan.restype = I
+    lib.repro_rglru_scan_config.argtypes = [
+        I, I, I,                      # dtype, B, W
+        P]                            # int[6] out
+    lib.repro_rglru_scan_config.restype = I
     lib.repro_ssm_scan.argtypes = [
         I, I,                         # u dtype, N
         P, P, P, P, P, P, P,          # u, delta, A, B, C, D, h0
@@ -194,6 +246,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         I, I, I,                      # B, S, Di
         P]                            # stream
     lib.repro_ssm_scan.restype = I
+    lib.repro_ssm_scan_config.argtypes = [
+        I, I, I, I,                   # u dtype, N, B, Di
+        P]                            # int[8] out
+    lib.repro_ssm_scan_config.restype = I
 
 
 if __name__ == "__main__":

@@ -19,172 +19,336 @@
 // (~136 MB, ~0.041 ms at the datasheet's 3.35 TB/s) weigh less than the
 // 268 M exponentials: each is one MUFU.EX2, 16 a clock per SM on sm_90,
 // ~0.064 ms over 132 SMs at the 1980 MHz max SM clock. chip_smoke.py
-// computes both for the run's card and clock.
+// computes both for the run's card and clock. In practice the issue rate
+// binds first: an accurate expf is ~8 instructions around its MUFU.EX2,
+// and a step adds four rounded multiplies and an add per element, so
+// every instruction spent per element beyond those ~13 costs time.
 //
-// Design. One thread per (row, channel, state element); a channel's N
-// lanes sit next to each other in a warp, so B=1 already gives Di*N
-// independent recurrences (131,072 at Falcon-Mamba-7B's width) rather
-// than Di. A block of 256 threads owns 256/N channels and walks S in
-// chunks: each chunk's (Δ, u) pairs (coalesced along Di) and (B, C) pairs
-// (N per step, shared by every channel of the block) are staged in
-// shared memory, and y goes back through shared memory so that its store
-// is coalesced too. y_t needs a sum over the N lanes of a channel: rather
-// than log2 N shuffles for every step, each lane keeps its products h*C
-// for N steps in registers and one reduce-scatter over the N lanes
-// (N-1 shuffles in all) leaves lane n holding step n's sum, so a shuffle
-// is spent per step per lane, not log2 N.
+// Design: few instructions per element, and enough independent work per
+// thread to issue them back to back. A channel's N states are split over
+// L = LANES = 4 lanes (tune_scan's sweep found 2 and 8 slower), lane j
+// holding the K = N/L states n = j + L*k. A thread carries G steps at
+// once (8, or 4 where K = 8): the reads of all G steps are issued
+// together, and their exponentials do not depend on h, so only the
+// rounded multiply and add of the recurrence are serial. Per thread and
+// step, (Δ, u) is read once and Δu formed once, and B and C come as
+// 16-byte vector reads from shared memory (staged there lane-major, so a
+// lane's K states are contiguous); the K products h*C are summed in
+// registers, and one reduce-scatter over the L lanes per L steps (L-1
+// shuffles) leaves lane j with step j's sum. A block owns CH = 32
+// channels (32*L threads) and walks S in chunks of STEPS steps: the
+// chunk's (Δ, u) tiles (coalesced along Di) and (B, C) rows are
+// double-buffered in shared memory by cp.async, so chunk c+1 loads while
+// chunk c runs; full chunks take an unguarded loop and only the last is
+// guarded; y goes back through shared memory (rows rotated so that a
+// channel's L lanes write distinct banks) so that its store is
+// coalesced. Where Di or a pointer is not a multiple of 16 bytes, (Δ, u)
+// are staged by plain loads instead (same arithmetic).
 //
-// Rounding. Each step multiplies and then adds, each rounded (__fmul_rn,
-// __fadd_rn: no fused multiply-add), with expf (not __expf, and no fast
-// math), and the sum over N folds halves in the reduce-scatter's order,
-// as the plain PyTorch loop does, so h and y can match it bit for bit.
+// Rounding, and why S is not split. Each step multiplies and then adds,
+// each rounded (__fmul_rn, __fadd_rn: no fused multiply-add), with expf
+// (not __expf, and no fast math), as the plain PyTorch loop does, so h
+// matches it bit for bit; a split of S (chunk-local scans and a carry
+// pass) would reorder those operations. The sum over N folds halves in
+// the plain loop's order (ref._halving_sum pairs n with n + N/2, then
+// n + N/4, ...): with n = j + L*k, the first log2 K folds pair states of
+// one lane (k with k + K/2, ...) and the last log2 L pair lane j with
+// lane j ^ L/2, ..., j ^ 1, which is what each stage of the
+// reduce-scatter adds.
 //
 // Built by repro_torch/kernels/_build.py with nvcc into a shared library
 // with a plain C interface; the entry point launches on the given stream
 // and returns cudaGetLastError().
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int CH = 32;        // channels per block
+constexpr int STEPS = 64;     // steps per staged chunk
+constexpr int BUFFERS = 2;    // chunks in shared memory at once
+constexpr int LANES = 4;      // lanes per channel (at most N)
 
-// Channels per block and steps per staged chunk for state size N: the
-// [steps, channels] tiles hold 2048 entries; rows are padded by one entry
-// so that lane n of channel c, writing y of step n, hits distinct banks.
-template <int N>
-struct Tile {
-  static constexpr int CH = THREADS / N;
-  static constexpr int STEPS = 2048 / CH;
-  static constexpr int LD = CH + 1;
-  static_assert(STEPS % N == 0, "a chunk holds whole groups of N steps");
-  static_assert(STEPS * CH % THREADS == 0, "the tiles split evenly");
+// One instance's layout: L lanes a channel and K states a lane, G steps a
+// thread carries at once (a multiple of L: 4 where a lane holds 8
+// states, else 8), and its shared memory in bytes from the block's
+// start: BUFFERS buffers of (Δ [STEPS][CH] fp32, u [STEPS][CH] in u's
+// dtype, B and C [STEPS][N] fp32 lane-major), then y [STEPS][CH] fp32.
+template <typename T, int N>
+struct Plan {
+  static constexpr int L = LANES < N ? LANES : N;
+  static constexpr int K = N / L;
+  static constexpr int G = K >= 8 ? 4 : 8;
+  static constexpr int THREADS = CH * L;
+  static constexpr int D = 0;
+  static constexpr int U = D + STEPS * CH * 4;
+  static constexpr int B = U + STEPS * CH * (int)sizeof(T);
+  static constexpr int C = B + STEPS * N * 4;
+  static constexpr int BUF = C + STEPS * N * 4;
+  static constexpr int Y = BUFFERS * BUF;
+  static constexpr int BYTES = Y + STEPS * CH * 4;
+  static_assert(U % 16 == 0 && B % 16 == 0 && BUF % 16 == 0, "alignment");
+  static_assert(N % L == 0 && G % L == 0 && STEPS % G == 0,
+                "groups of whole lane runs");
+};
+
+// The launch of one call, as launch() makes it and repro_ssm_scan_config
+// reports it.
+struct Launch {
+  int grid_x, grid_y, threads, smem_bytes, buffers, steps, lanes, group;
 };
 
 template <typename T, int N>
-__global__ void __launch_bounds__(THREADS, 4)
+Launch launch_of(int B, int Di) {
+  using P = Plan<T, N>;
+  return {(Di + CH - 1) / CH, B, P::THREADS, P::BYTES, BUFFERS, STEPS, P::L,
+          P::G};
+}
+
+// Stage steps s0 .. s0+STEPS-1 (those below S) of channels c0 .. c0+CH-1
+// into one buffer. B and C go lane-major: state n = j + L*k of step t to
+// t*N + j*K + k.
+template <typename T, int N>
+__device__ __forceinline__ void stage_chunk(
+    unsigned char* buf, const T* __restrict__ u,
+    const float* __restrict__ delta, const float* __restrict__ Bm,
+    const float* __restrict__ Cm, int64_t row0, int s0, int S, int c0, int Di,
+    bool vec) {
+  using M = Plan<T, N>;
+  constexpr int THREADS = M::THREADS, L = M::L, K = M::K;
+  constexpr int VD = 4, VU = 16 / (int)sizeof(T);    // elements a cp.async
+  const int tid = threadIdx.x, tc = min(STEPS, S - s0);
+  float* sd = reinterpret_cast<float*>(buf + M::D);
+  T* su = reinterpret_cast<T*>(buf + M::U);
+  if (vec) {
+#pragma unroll
+    for (int r = 0; r < STEPS * CH / VD / THREADS; ++r) {
+      const int i = r * THREADS + tid, t = i / (CH / VD);
+      const int k = (i % (CH / VD)) * VD;
+      if (t < tc && c0 + k < Di)
+        cp_async16(smem_addr(sd + t * CH + k),
+                   delta + (row0 + s0 + t) * Di + c0 + k, 16);
+    }
+#pragma unroll
+    for (int r = 0; r < STEPS * CH / VU / THREADS; ++r) {
+      const int i = r * THREADS + tid, t = i / (CH / VU);
+      const int k = (i % (CH / VU)) * VU;
+      if (t < tc && c0 + k < Di)
+        cp_async16(smem_addr(su + t * CH + k),
+                   u + (row0 + s0 + t) * Di + c0 + k, 16);
+    }
+  } else {
+#pragma unroll 4
+    for (int r = 0; r < STEPS * CH / THREADS; ++r) {
+      const int i = r * THREADS + tid, t = i / CH, k = i % CH;
+      if (t < tc && c0 + k < Di) {
+        const int64_t g = (row0 + s0 + t) * Di + c0 + k;
+        sd[t * CH + k] = delta[g];
+        su[t * CH + k] = u[g];
+      }
+    }
+  }
+  const uint32_t sb = smem_addr(buf + M::B), sc = smem_addr(buf + M::C);
+#pragma unroll
+  for (int r = 0; r < (STEPS * N + THREADS - 1) / THREADS; ++r) {
+    const int i = r * THREADS + tid, t = i / N, n = i % N;
+    if (i < STEPS * N && t < tc) {
+      const int64_t g = (row0 + s0) * N + i;
+      const uint32_t o = 4 * (t * N + (n % L) * K + n / L);
+      cp_async4(sb + o, Bm + g);
+      cp_async4(sc + o, Cm + g);
+    }
+  }
+}
+
+// K consecutive floats of shared memory in 16-byte (or 8-byte) reads.
+template <int K>
+__device__ __forceinline__ void read_vec(const float* p, float (&v)[K]) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < K; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      v[i] = q.x; v[i + 1] = q.y; v[i + 2] = q.z; v[i + 3] = q.w;
+    }
+  } else if constexpr (K == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(Plan<T, N>::THREADS)
     ssm_kernel(const T* __restrict__ u, const float* __restrict__ delta,
                const float* __restrict__ A, const float* __restrict__ Bm,
                const float* __restrict__ Cm, const float* __restrict__ Dv,
                const float* __restrict__ h0, T* __restrict__ y,
-               float* __restrict__ h_last, int S, int Di) {
-  constexpr int CH = Tile<N>::CH, STEPS = Tile<N>::STEPS, LD = Tile<N>::LD;
-  __shared__ float2 s_du[STEPS * LD];   // (Δ, u) per step and channel
-  __shared__ float2 s_bc[STEPS * N];    // (B, C) per step and state
-  __shared__ float s_y[STEPS * LD];
+               float* __restrict__ h_last, int S, int Di, bool vec) {
+  using M = Plan<T, N>;
+  constexpr int THREADS = M::THREADS, L = M::L, K = M::K, G = M::G;
+  // y of step t, channel c in s_y: each row rotated by (t % L) * CH / L
+  // entries, so that the L lanes of a channel, writing L consecutive
+  // steps at once, hit distinct banks.
+  auto ysw = [](int t, int c) {
+    return t * CH + ((c + (t % L) * (CH / L)) % CH);
+  };
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_y = reinterpret_cast<float*>(smem + M::Y);
 
   const int tid = threadIdx.x;
-  const int n = tid % N;                // state element (lane within group)
-  const int cl = tid / N;               // channel within the block
+  const int j = tid % L;                // lane within the channel
+  const int cl = tid / L;               // channel within the block
   const int c0 = blockIdx.x * CH;
   const int c = c0 + cl;
   const int b = blockIdx.y;
   const bool live = c < Di;
   const int64_t row0 = (int64_t)b * S;
-  const int64_t hidx = ((int64_t)b * Di + c) * N + n;
+  const int64_t hrow = ((int64_t)b * Di + c) * N + j;
 
-  const float a = live ? A[(int64_t)c * N + n] : 0.f;
+  float a[K], h[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    a[k] = live ? A[(int64_t)c * N + j + L * k] : 0.f;
+    h[k] = live ? h0[hrow + L * k] : 0.f;
+  }
   const float d = live ? Dv[c] : 0.f;
-  float h = live ? h0[hidx] : 0.f;
 
-  for (int s0 = 0; s0 < S; s0 += STEPS) {
-    const int tc = min(STEPS, S - s0);
-    __syncthreads();                    // last chunk's readers are done
+  // G steps of this thread's K states from a staged buffer, from step g0
+  // on (steps from tc on are skipped when TAIL). The reads of all G steps
+  // are issued together; y of the group is finished by a reduce-scatter
+  // over the channel's L lanes, in runs of L steps, which leaves step
+  // g0 + r + j's sum with lane j.
+  auto group = [&](const unsigned char* buf, int g0, int tc, auto tail) {
+    constexpr bool TAIL = decltype(tail)::value;
+    const float* sd = reinterpret_cast<const float*>(buf + M::D);
+    const T* su = reinterpret_cast<const T*>(buf + M::U);
+    const float* sb = reinterpret_cast<const float*>(buf + M::B) + j * K;
+    const float* sc = reinterpret_cast<const float*>(buf + M::C) + j * K;
+    float p[G];
 #pragma unroll
-    for (int r = 0; r < STEPS * CH / THREADS; ++r) {
-      const int i = r * THREADS + tid, t = i / CH, k = i % CH;
-      float2 du = make_float2(0.f, 0.f);
-      if (t < tc && c0 + k < Di) {
-        const int64_t g = (row0 + s0 + t) * Di + c0 + k;
-        du = make_float2(delta[g], to_f(u[g]));
+    for (int i = 0; i < G; ++i) {
+      const int t = g0 + i;
+      p[i] = 0.f;
+      if (TAIL && t >= tc) continue;      // uniform across the block
+      const float dl = sd[t * CH + cl];
+      const float du = __fmul_rn(dl, to_f(su[t * CH + cl]));
+      float bv[K], cv[K], q[K];
+      read_vec<K>(sb + t * N, bv);
+      read_vec<K>(sc + t * N, cv);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float dA = expf(__fmul_rn(dl, a[k]));
+        h[k] = __fadd_rn(__fmul_rn(dA, h[k]), __fmul_rn(du, bv[k]));
+        q[k] = __fmul_rn(h[k], cv[k]);
       }
-      s_du[t * LD + k] = du;
-    }
-    for (int i = tid; i < STEPS * N; i += THREADS) {
-      const int64_t g = (row0 + s0) * N + i;
-      s_bc[i] = i / N < tc ? make_float2(Bm[g], Cm[g])
-                           : make_float2(0.f, 0.f);
-    }
-    __syncthreads();
-
-    for (int g0 = 0; g0 < tc; g0 += N) {
-      float p[N];                       // h*C of steps g0 .. g0+N-1
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const int t = g0 + j;
-        if (t < tc) {                   // uniform across the block
-          const float2 du = s_du[t * LD + cl];
-          const float2 bc = s_bc[t * N + n];
-          const float dA = expf(__fmul_rn(du.x, a));
-          const float dBu = __fmul_rn(__fmul_rn(du.x, du.y), bc.x);
-          h = __fadd_rn(__fmul_rn(dA, h), dBu);
-          p[j] = __fmul_rn(h, bc.y);
-        } else {
-          p[j] = 0.f;
+      for (int w = K / 2; w >= 1; w /= 2)
+#pragma unroll
+        for (int k = 0; k < w; ++k) q[k] = __fadd_rn(q[k], q[k + w]);
+      p[i] = q[0];
+    }
+#pragma unroll
+    for (int r = 0; r < G; r += L) {
+#pragma unroll
+      for (int half = L / 2; half >= 1; half /= 2) {
+        const bool upper = (j & half) != 0;
+#pragma unroll
+        for (int i = 0; i < half; ++i) {
+          const float send = upper ? p[r + i] : p[r + i + half];
+          const float keep = upper ? p[r + i + half] : p[r + i];
+          p[r + i] = __fadd_rn(keep, __shfl_xor_sync(FULL, send, half));
         }
       }
-      // Reduce-scatter over the channel's N lanes: at each stage a lane
-      // keeps the half of its steps on its side of the partner bit and
-      // sends the other half; after log2 N stages lane n holds the full
-      // sum of step g0 + n in p[0].
-#pragma unroll
-      for (int half = N / 2; half >= 1; half /= 2) {
-        const bool upper = (n & half) != 0;
-#pragma unroll
-        for (int j = 0; j < half; ++j) {
-          const float send = upper ? p[j] : p[j + half];
-          const float keep = upper ? p[j + half] : p[j];
-          p[j] = __fadd_rn(keep, __shfl_xor_sync(FULL, send, half));
-        }
-      }
-      const int t = g0 + n;
-      if (t < tc)
-        s_y[t * LD + cl] =
-            __fadd_rn(p[0], __fmul_rn(d, s_du[t * LD + cl].y));
+      const int t = g0 + r + j;
+      if (!TAIL || t < tc)
+        s_y[ysw(t, cl)] =
+            __fadd_rn(p[r], __fmul_rn(d, to_f(su[t * CH + cl])));
     }
-    __syncthreads();
+  };
+
+  const int nc = (S + STEPS - 1) / STEPS;
+  if (nc > 0)
+    stage_chunk<T, N>(smem, u, delta, Bm, Cm, row0, 0, S, c0, Di, vec);
+  cp_async_commit();
+#pragma unroll 1
+  for (int ci = 0; ci < nc; ++ci) {
+    // Chunk ci+1 into the next buffer: its readers (chunk ci+1-BUFFERS)
+    // passed the barrier after their steps.
+    if (ci + 1 < nc)
+      stage_chunk<T, N>(smem + ((ci + 1) % BUFFERS) * M::BUF, u, delta, Bm,
+                        Cm, row0, (ci + 1) * STEPS, S, c0, Di, vec);
+    cp_async_commit();
+    cp_async_wait<1>();                   // chunk ci has landed
+    __syncthreads();                      // ... for every thread
+    const unsigned char* buf = smem + (ci % BUFFERS) * M::BUF;
+    const int s0 = ci * STEPS, tc = min(STEPS, S - s0);
+    if (tc == STEPS) {                    // a full chunk: no guard
+#pragma unroll 1
+      for (int g0 = 0; g0 < STEPS; g0 += G)
+        group(buf, g0, STEPS, std::false_type{});
+    } else {
+#pragma unroll 1
+      for (int g0 = 0; g0 < tc; g0 += G)
+        group(buf, g0, tc, std::true_type{});
+    }
+    __syncthreads();                      // s_y done; ci's buffer free
 
 #pragma unroll
     for (int r = 0; r < STEPS * CH / THREADS; ++r) {
       const int i = r * THREADS + tid, t = i / CH, k = i % CH;
       if (t < tc && c0 + k < Di)
-        y[(row0 + s0 + t) * Di + c0 + k] = from_f<T>(s_y[t * LD + k]);
+        y[(row0 + s0 + t) * Di + c0 + k] = from_f<T>(s_y[ysw(t, k)]);
     }
   }
-  if (live) h_last[hidx] = h;
+  cp_async_wait_all();
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) h_last[hrow + L * k] = h[k];
+  }
 }
 
 template <typename T, int N>
-cudaError_t launch_typed(const void* u, const float* delta, const float* A,
-                         const float* Bm, const float* Cm, const float* Dv,
-                         const float* h0, void* y, float* h_last, int B,
-                         int S, int Di, cudaStream_t stream) {
-  constexpr int CH = Tile<N>::CH;
-  dim3 grid((Di + CH - 1) / CH, B);
-  ssm_kernel<T, N><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(u), delta, A, Bm, Cm, Dv, h0,
-      static_cast<T*>(y), h_last, S, Di);
+cudaError_t launch(const Launch& c, const void* u, const float* delta,
+                   const float* A, const float* Bm, const float* Cm,
+                   const float* Dv, const float* h0, void* y, float* h_last,
+                   int S, int Di, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ssm_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      c.smem_bytes);
+  if (err != cudaSuccess) return err;
+  const bool vec = Di % 8 == 0 && (reinterpret_cast<uintptr_t>(u) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(delta) & 15) == 0;
+  ssm_kernel<T, N><<<dim3(c.grid_x, c.grid_y), c.threads, c.smem_bytes,
+                     stream>>>(static_cast<const T*>(u), delta, A, Bm, Cm,
+                               Dv, h0, static_cast<T*>(y), h_last, S, Di,
+                               vec);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_n(int N, const void* u, const float* delta, const float* A,
-                     const float* Bm, const float* Cm, const float* Dv,
-                     const float* h0, void* y, float* h_last, int B, int S,
-                     int Di, cudaStream_t st) {
-  switch (N) {
-    case 4:
-      return launch_typed<T, 4>(u, delta, A, Bm, Cm, Dv, h0, y, h_last, B, S,
-                                Di, st);
-    case 8:
-      return launch_typed<T, 8>(u, delta, A, Bm, Cm, Dv, h0, y, h_last, B, S,
-                                Di, st);
-    case 16:
-      return launch_typed<T, 16>(u, delta, A, Bm, Cm, Dv, h0, y, h_last, B, S,
-                                 Di, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+struct Type {
+  using type = T;
+};
+
+// f(Type<T>{}, std::integral_constant<int, N>{}) for the instance that
+// takes u of this dtype at state size N; an error for any other.
+template <typename F>
+cudaError_t dispatch(int dtype, int N, F&& f) {
+  auto by_n = [&](auto t) -> cudaError_t {
+    switch (N) {
+      case 4: return f(t, std::integral_constant<int, 4>{});
+      case 8: return f(t, std::integral_constant<int, 8>{});
+      case 16: return f(t, std::integral_constant<int, 16>{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  if (dtype == F32) return by_n(Type<float>{});
+  if (dtype == BF16) return by_n(Type<__nv_bfloat16>{});
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -200,13 +364,29 @@ int repro_ssm_scan(int dtype, int N, const void* u, const float* delta,
                    int Bb, int S, int Di, void* stream) {
   if (Bb < 1 || S < 0 || Di < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32)
-    return (int)launch_n<float>(N, u, delta, A, B, C, D, h0, y, h_last, Bb,
-                                S, Di, st);
-  if (dtype == BF16)
-    return (int)launch_n<__nv_bfloat16>(N, u, delta, A, B, C, D, h0, y,
-                                        h_last, Bb, S, Di, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch(dtype, N, [&](auto t, auto n) {
+    using T = typename decltype(t)::type;
+    constexpr int NN = decltype(n)::value;
+    return launch<T, NN>(launch_of<T, NN>(Bb, Di), u, delta, A, B, C, D, h0,
+                         y, h_last, S, Di, st);
+  });
+}
+
+// The launch repro_ssm_scan makes for these arguments: out[0..7] = grid
+// x, grid y, threads a block, dynamic shared bytes a block, buffers
+// (chunks in shared memory at once), steps a chunk, lanes a channel,
+// steps a thread carries at once.
+int repro_ssm_scan_config(int dtype, int N, int Bb, int Di, int* out) {
+  if (Bb < 1 || Di < 1) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(dtype, N, [&](auto t, auto n) {
+    using T = typename decltype(t)::type;
+    constexpr int NN = decltype(n)::value;
+    const Launch c = launch_of<T, NN>(Bb, Di);
+    const int v[] = {c.grid_x, c.grid_y, c.threads, c.smem_bytes,
+                     c.buffers, c.steps, c.lanes, c.group};
+    for (int i = 0; i < 8; ++i) out[i] = v[i];
+    return cudaSuccess;
+  });
 }
 
 }  // extern "C"

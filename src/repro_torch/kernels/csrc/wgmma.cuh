@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core and
-// cp.async kernels, in inline PTX: 16-byte cp.async with zero fill,
-// the proxy fence that hands shared memory written by threads to the
-// tensor cores, warpgroup MMA (wgmma) fences and waits, the shared-memory
-// matrix descriptor of a 128-byte-swizzled tile, and the wgmma shapes
-// the kernels issue.
+// cp.async kernels, in inline PTX: 16-byte cp.async with zero fill and
+// 4-byte cp.async, waits on the oldest groups, mbarriers (with the
+// arrival of a thread's cp.asyncs), the proxy fence that hands shared
+// memory written by threads to the tensor cores, warpgroup MMA (wgmma)
+// fences and waits, the shared-memory matrix descriptor of a
+// 128-byte-swizzled tile, and the wgmma shapes the kernels issue.
 //
 // Tiles the tensor cores read are kept as slabs of 64 bf16 columns: a
 // slab of R rows holds row r at byte r * 128, and its 16-byte chunk c at
@@ -33,6 +34,51 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Wait until at most N committed cp.async groups of this thread are
+// still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Copy 4 bytes from global to shared memory asynchronously (through L1:
+// only the 16-byte form may bypass it).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// mbarriers in shared memory (addresses from smem_addr): init with the
+// number of arrivals that completes a phase; arrive (release); have the
+// thread's earlier cp.asyncs arrive when they land, as one of the
+// counted arrivals (noinc); and spin until the phase of the given parity
+// has completed (acquire).
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
 }
 
 // Shared memory written by threads (st.shared, cp.async) becomes visible

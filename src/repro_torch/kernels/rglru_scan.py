@@ -8,6 +8,8 @@ kernel has no backward pass yet, so a call that needs a gradient raises.
 
 The kernel replaces the Pallas ``_rglru_kernel`` of
 ``repro/kernels/rglru_scan.py``; unlike it, any S and W are taken.
+``launch_config`` reports the launch a call makes (grid, threads, shared
+memory, ring depth).
 """
 
 from __future__ import annotations
@@ -15,6 +17,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
+
+# What ``repro_rglru_scan_config`` reports, in its order.
+LAUNCH_KEYS = ("grid_x", "grid_y", "threads", "smem_bytes", "stages",
+               "steps_per_stage")
 
 # Launches since the last reset: a plain integer, bumped where the kernel
 # launches and nowhere else.
@@ -67,3 +73,11 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
     _build.check_rc(rc, "rglru_scan")
     launches["rglru_scan"] += 1
     return y, h_last
+
+
+def launch_config(dtype: torch.dtype, B: int, W: int) -> dict:
+    """The launch ``rglru_scan`` makes for a/x of ``dtype`` and shape
+    [B, S, W], as the kernel library reports it (``LAUNCH_KEYS``)."""
+    lib = _build.load()
+    return _build.launch_config(lib.repro_rglru_scan_config, LAUNCH_KEYS,
+                                _build.DTYPE_CODE[dtype], B, W)

@@ -11,6 +11,9 @@ The kernel replaces the Pallas ``_ssm_kernel`` of
 state size N must be one the kernel is built for (``STATE_SIZES``).
 B and C split from one projection are strided views: the caller makes
 them contiguous.
+
+``launch_config`` reports the launch a call makes (grid, threads,
+shared memory, staged chunks, lanes a channel).
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ import torch
 from repro_torch.kernels import _build, ref
 
 STATE_SIZES = (4, 8, 16)
+# What ``repro_ssm_scan_config`` reports, in its order.
+LAUNCH_KEYS = ("grid_x", "grid_y", "threads", "smem_bytes", "buffers",
+               "steps_per_chunk", "lanes", "group_steps")
 
 # Launches since the last reset: a plain integer, bumped where the kernel
 # launches and nowhere else.
@@ -87,3 +93,12 @@ def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     _build.check_rc(rc, "ssm_scan")
     launches["ssm_scan"] += 1
     return y, h_last
+
+
+def launch_config(dtype: torch.dtype, N: int, B: int, Di: int) -> dict:
+    """The launch ``ssm_scan`` makes for u of ``dtype`` and shape
+    [B, S, Di] at state size N, as the kernel library reports it
+    (``LAUNCH_KEYS``)."""
+    lib = _build.load()
+    return _build.launch_config(lib.repro_ssm_scan_config, LAUNCH_KEYS,
+                                _build.DTYPE_CODE[dtype], N, B, Di)

@@ -17,7 +17,7 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, scan_inputs
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import ssm_scan as ss
 from repro_torch.models import transformer
@@ -168,10 +168,7 @@ def test_cuda_decode_attention_repeats_bit_identical(cuda):
 def test_cuda_rglru_scan_matches_plain(cuda, dtype, B, S, W):
     """Multiply then add, each rounded, in both: bit-identical."""
     gen = torch.Generator(device=cuda).manual_seed(S)
-    a = (0.8 + 0.199 * torch.rand((B, S, W), generator=gen,
-                                  device=cuda)).to(dtype)
-    x = _randn(gen, (B, S, W), dtype, cuda)
-    h0 = torch.randn((B, W), generator=gen, device=cuda)
+    a, x, h0 = scan_inputs.rglru(gen, B, S, W, dtype, cuda)
     before = rg.launches["rglru_scan"]
     y, h = rg.rglru_scan(a, x, h0)
     assert rg.launches["rglru_scan"] == before + 1
@@ -181,19 +178,27 @@ def test_cuda_rglru_scan_matches_plain(cuda, dtype, B, S, W):
     torch.testing.assert_close(h, he, rtol=0, atol=0)
 
 
-def _ssm_inputs(gen, B, S, Di, N, dtype, device):
-    """u in ``dtype``, the rest fp32, at the model's scale: Δ a softplus,
-    A = -(1..N) per channel, non-zero h0."""
-    u = _randn(gen, (B, S, Di), dtype, device)
-    delta = torch.nn.functional.softplus(
-        torch.randn((B, S, Di), generator=gen, device=device))
-    A = -torch.arange(1, N + 1, dtype=torch.float32,
-                      device=device).repeat(Di, 1)
-    Bc = torch.randn((B, S, N), generator=gen, device=device)
-    Cc = torch.randn((B, S, N), generator=gen, device=device)
-    D = torch.randn((Di,), generator=gen, device=device)
-    h0 = torch.randn((B, Di, N), generator=gen, device=device)
-    return u, delta, A, Bc, Cc, D, h0
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W", [(1, 0, 64),       # no step: h_last = h0
+                                   (2, 1, 2560),     # one step
+                                   (3, 5, 2560),     # S < one ring stage
+                                   (3, 1001, 100),   # ragged S, W % 32 != 0
+                                   (1, 1001, 2501),  # W % 8 != 0: plain loads
+                                   (3, 800, 2560)])  # past the ring, B = 3
+def test_cuda_rglru_scan_ring_edges(cuda, dtype, B, S, W):
+    """The load ring's edges: S of 0 and 1, shorter than a stage, not a
+    multiple of it and longer than the ring; W not a multiple of the
+    block's 32 channels, or of a 16-byte vector; B = 3. Bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(S + W)
+    a, x, h0 = scan_inputs.rglru(gen, B, S, W, dtype, cuda)
+    y, h = rg.rglru_scan(a, x, h0)
+    ye, he = ref.rglru_scan(a, x, h0)
+    assert y.shape == (B, S, W) and y.dtype == dtype
+    torch.testing.assert_close(y, ye, rtol=0, atol=0)
+    torch.testing.assert_close(h, he, rtol=0, atol=0)
+    if S == 0:
+        assert torch.equal(h, h0)
 
 
 @pytest.mark.gpu
@@ -202,11 +207,12 @@ def _ssm_inputs(gen, B, S, Di, N, dtype, device):
                                       (3, 1001, 333, 8), (2, 7, 100, 4),
                                       (1, 1, 64, 16)])
 def test_cuda_ssm_scan_matches_plain(cuda, dtype, B, S, Di, N):
-    """y to the plain loop's tolerance (the sum over N runs in another
-    order); h_last multiplies then adds, each rounded, as the plain loop
-    does, so it is held to the fp32 limit."""
+    """Each step multiplies then adds, each rounded, as the plain loop
+    does, and the sum over N runs in the plain loop's halving order, so
+    y and h_last are bit-identical (and within the plain loop's
+    tolerance)."""
     gen = torch.Generator(device=cuda).manual_seed(S + Di)
-    args = _ssm_inputs(gen, B, S, Di, N, dtype, cuda)
+    args = scan_inputs.ssm(gen, B, S, Di, N, dtype, cuda)
     before = ss.launches["ssm_scan"]
     y, h = ss.ssm_scan(*args)
     assert ss.launches["ssm_scan"] == before + 1
@@ -214,6 +220,46 @@ def test_cuda_ssm_scan_matches_plain(cuda, dtype, B, S, Di, N):
     assert y.dtype == dtype and h.dtype == torch.float32
     _assert_matches_plain(y, ye)
     _assert_matches_plain(h, he)
+    assert torch.equal(y, ye)
+    assert torch.equal(h, he)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", ss.STATE_SIZES)
+@pytest.mark.parametrize("B,S,Di", [(1, 1, 333),      # one step, ragged Di
+                                    (3, 130, 1000),   # S % 64 != 0
+                                    (2, 200, 8190)])  # Di % 8 != 0
+def test_cuda_ssm_scan_staging_edges(cuda, dtype, N, B, S, Di):
+    """The staging's edges, at every state size: S of 1 and not a
+    multiple of the 64-step chunk, Di not a multiple of the block's 32
+    channels or of a 16-byte vector (plain loads). y and h_last
+    bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(S + Di + N)
+    args = scan_inputs.ssm(gen, B, S, Di, N, dtype, cuda)
+    before = ss.launches["ssm_scan"]
+    y, h = ss.ssm_scan(*args)
+    assert ss.launches["ssm_scan"] == before + 1
+    ye, he = ref.ssm_scan(*args)
+    assert y.shape == (B, S, Di) and y.dtype == dtype
+    _assert_matches_plain(y, ye)
+    assert torch.equal(y, ye)
+    assert torch.equal(h, he)
+
+
+@pytest.mark.gpu
+def test_cuda_scan_launch_config(cuda):
+    """The launch each scan reports is the one its wrapper makes at the
+    models' prefill shapes: K4 one chain warp and two producer warps per
+    32 channels, K5 4 lanes a channel over 32 channels, both chunks of
+    its double buffer in the dynamic shared memory it asks for."""
+    assert rg.launch_config(torch.float32, 1, 2560) == {
+        "grid_x": 80, "grid_y": 1, "threads": 96, "smem_bytes": 98496,
+        "stages": 12, "steps_per_stage": 32}
+    assert ss.launch_config(torch.bfloat16, 16, 1, 8192) == {
+        "grid_x": 256, "grid_y": 1, "threads": 128, "smem_bytes": 49152,
+        "buffers": 2, "steps_per_chunk": 64, "lanes": 4, "group_steps": 8}
+    assert ss.launch_config(torch.float32, 4, 3, 333)["grid_x"] == 11
 
 
 @pytest.mark.gpu
@@ -234,10 +280,10 @@ def test_cuda_prefill_wrappers_reject_what_the_kernels_do_not_take(cuda):
         rg.rglru_scan(a.transpose(1, 2), a.transpose(1, 2),
                       torch.zeros((1, 8), device=cuda))
     gen = torch.Generator(device=cuda).manual_seed(0)
-    args = list(_ssm_inputs(gen, 1, 8, 16, 32, torch.float32, cuda))
+    args = list(scan_inputs.ssm(gen, 1, 8, 16, 32, torch.float32, cuda))
     with pytest.raises(ValueError, match="state size"):
         ss.ssm_scan(*args)                            # N 32: not built
-    args = list(_ssm_inputs(gen, 1, 8, 16, 16, torch.float32, cuda))
+    args = list(scan_inputs.ssm(gen, 1, 8, 16, 16, torch.float32, cuda))
     with pytest.raises(TypeError, match="delta"):
         ss.ssm_scan(args[0], args[1].to(torch.bfloat16), *args[2:])
     bc = torch.zeros((1, 8, 32), device=cuda)         # B/C split views

@@ -423,6 +423,40 @@ def test_prefill_kernel_dispatch_rules():
         ss.ssm_scan(*sargs)
 
 
+@pytest.mark.parametrize("N,lanes", [(N, L) for N in ss.STATE_SIZES
+                                     for L in (2, 4, 8) if L <= N])
+def test_ssm_lane_layout_sums_in_halving_order(N, lanes):
+    """The CUDA selective scan's sum over N, emulated here: lane j of a
+    channel holds states n = j + L*k (k < K = N/L), folds them in
+    registers (k with k + K/2, then k + K/4, ...) and then adds lane
+    j ^ L/2, ..., j ^ 1 (a butterfly of shuffles). Every lane ends with
+    ref._halving_sum's value, bit for bit, for the 4 lanes the kernel
+    uses and the 2 and 8 of its sweep; a left-to-right sum of the same
+    numbers does not."""
+    rng = np.random.default_rng(10 * N + lanes)
+    mag = 10.0 ** rng.uniform(-4, 4, (256, N))
+    t = torch.from_numpy((rng.standard_normal((256, N)) * mag)
+                         .astype(np.float32))
+    K = N // lanes
+    p = t.reshape(-1, K, lanes).transpose(1, 2)     # p[:, j, k] = t[:, j+L*k]
+    w = K // 2
+    while w >= 1:                                   # in-thread folds
+        p = p[..., :w] + p[..., w:2 * w]
+        w //= 2
+    s = p[..., 0]                                   # [rows, L]
+    o = lanes // 2
+    while o >= 1:                                   # shuffles at xor o
+        s = s + s[:, torch.arange(lanes) ^ o]
+        o //= 2
+    want = ref._halving_sum(t)
+    for j in range(lanes):
+        assert torch.equal(s[:, j], want)
+    seq = t[:, 0].clone()
+    for n in range(1, N):
+        seq = seq + t[:, n]
+    assert not torch.equal(seq, want)
+
+
 def test_flash_plain_right_aligns_and_windows():
     """Queries right-aligned over a longer key sequence equal the last Sq
     rows of the square problem, with or without a window."""
