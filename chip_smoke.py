@@ -25,7 +25,14 @@ each of which ends the run with a non-zero exit on failure:
    kernels (median of 3, and the scan kernels' device time in it);
 5. serve: ``build_program`` (clients -> batcher -> engine server) on the
    thread launcher, in each config's own bf16: Qwen2 flat and paged,
-   RecurrentGemma and Falcon-Mamba flat.
+   RecurrentGemma and Falcon-Mamba flat;
+6. fabric: full-width bf16 Qwen2-1.5B through the replicated serve fabric
+   (Registry -> Router -> EngineServers): one replica behind the router;
+   then two, in a run with the telemetry hub and traced requests, a run
+   where replica 0 is killed mid-run, and a paged run that rolls the
+   fleet from v0 to v1 of a ``ModelStore`` in the JAX package's layout;
+   every request must be served at its length, both replicas must
+   retire requests, the kill must fire and the rollout must promote.
 
 Prints JSON lines; the one before the last is the ``{"kernels": ...}``
 record, the last ``{"ok": true, "device": {...}}``. Exits non-zero, and
@@ -36,13 +43,17 @@ repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
+import io
 import json
-import math
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1067,6 +1078,228 @@ def phase_serve(device_line: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 6. fabric: Registry -> Router -> EngineServers, full width, bf16
+# ---------------------------------------------------------------------------
+
+FABRIC_CLIENTS, FABRIC_REQUESTS, FABRIC_PLEN, FABRIC_NEW = 3, 4, 128, 32
+
+
+class _Tee(io.TextIOBase):
+    """stdout that also keeps a copy, for the lines the fabric's nodes
+    print from their own threads. ``print`` writes its text and its
+    newline separately, so another thread's line can start right after
+    a line's text: search the copy, do not split it into lines."""
+
+    def __init__(self, out):
+        self._out, self._buf, self._lock = out, io.StringIO(), threading.Lock()
+
+    def write(self, text):
+        with self._lock:
+            self._buf.write(text)
+        return self._out.write(text)
+
+    def flush(self):
+        self._out.flush()
+
+    def text(self) -> str:
+        with self._lock:
+            return self._buf.getvalue()
+
+
+def _fabric_run(cfg, label: str, kernels, replicas: int = 2,
+                **kw) -> tuple[dict, dict, str]:
+    """One fabric program on the card: counters reset just before the
+    launch and read just after. Checks every request was served at its
+    length and that each of ``kernels`` was launched. Returns the
+    meter's summary (with the wall time), the launches and the printed
+    text."""
+    from repro_torch import core as lp
+    from repro_torch.launch import serve
+    total = FABRIC_CLIENTS * FABRIC_REQUESTS
+    with tempfile.TemporaryDirectory() as tmp:
+        summary_path = os.path.join(tmp, "meter.json")
+        program = serve.build_program(
+            cfg, num_clients=FABRIC_CLIENTS,
+            requests_per_client=FABRIC_REQUESTS, prompt_len=FABRIC_PLEN,
+            max_new=FABRIC_NEW, replicas=replicas, routers=1,
+            meter_json=summary_path, **kw)
+        tee = _Tee(sys.stdout)
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            lp.launch_and_wait(program, timeout_s=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        run = _read_launches()
+        with open(summary_path) as f:
+            summary = json.load(f)
+    # The replicas can outlive the program in reference cycles: collect
+    # them, so the next run's memory reading starts from a clean card.
+    del program
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["wall_s"] = wall
+    if summary["count"] != total:
+        fail(f"{label}: served {summary['count']} of {total} requests")
+    if summary["out_lens"] != [FABRIC_PLEN + FABRIC_NEW] * total:
+        fail(f"{label}: wrong output lengths {summary['out_lens']}")
+    for name in kernels:
+        if not run[name]:
+            fail(f"{label} launched no {name} kernel")
+    return summary, run, tee.text()
+
+
+def _emit_fabric(label, summary, run, device_line, replicas: int = 2,
+                 **extra) -> None:
+    total = FABRIC_CLIENTS * FABRIC_REQUESTS
+    emit({"phase": "fabric", "run": label, "config": "qwen2-1.5b full "
+          f"width, bf16, seeded random weights; {replicas} replica"
+          f"{'s' if replicas > 1 else ''}, 1 router",
+          "requests": summary["count"], "prompt_len": FABRIC_PLEN,
+          "max_new": FABRIC_NEW, "p50_ms": summary["p50_ms"],
+          "p95_ms": summary["p95_ms"], "mean_ms": summary["mean_ms"],
+          "wall_s": summary["wall_s"], "generated_tokens_per_s_wall":
+          total * FABRIC_NEW / summary["wall_s"], "launches": run,
+          **extra, "device": device_line})
+
+
+def _store_dir(need_bytes: int) -> str:
+    """A fresh temp directory for the model store; fail if its disk has
+    less than ``need_bytes`` free."""
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    if free < need_bytes:
+        fail(f"the rollout's model store needs {need_bytes / 1e9:.1f} GB "
+             f"of disk; {tempfile.gettempdir()} has {free / 1e9:.1f} GB "
+             "free")
+    return tempfile.mkdtemp(prefix="modelstore-")
+
+
+def _rollout_run(cfg, device_line) -> dict:
+    """v0 and v1 (seeds 0 and 1) published as fp32 in the JAX layout,
+    then a paged fabric run that rolls the fleet to v1 after 4 served
+    requests. Fails unless the rollout promotes and both replicas end on
+    v1."""
+    from repro_torch.launch import serve
+    n_params = cfg.param_count()
+    version_bytes = 4 * n_params
+    store = _store_dir(int(2.2 * version_bytes))
+    try:
+        publish_s = []
+        for v in (0, 1):
+            t0 = time.perf_counter()
+            serve.publish_demo_versions(cfg, store, versions=(v,),
+                                        device="cuda")
+            publish_s.append(time.perf_counter() - t0)
+        store_bytes = sum(f.stat().st_size for f in Path(store).rglob("*")
+                          if f.is_file())
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_alloc = torch.cuda.memory_allocated()
+        summary, run, text = _fabric_run(
+            cfg, "fabric rollout", ("paged_decode_attention",
+                                    "flash_attention"),
+            page_size=16, store_dir=store, model_version=0, rollout=1,
+            rollout_after=4)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    results = [json.JSONDecoder().raw_decode(text, m.end())[0]
+               for m in re.finditer(r"rollout: result ", text)]
+    if len(results) != 1:
+        fail(f"fabric rollout: expected one rollout result, got {results}")
+    result = results[0]
+    if result["status"] != "promoted" or \
+            "rollout: promoted -> v1" not in text:
+        fail(f"fabric rollout: not promoted; verdict {result}")
+    versions = result["replica_versions"]
+    if len(versions) != 2 or set(versions.values()) != {1}:
+        fail(f"fabric rollout: replicas' load()['version'] {versions}")
+    restores = {}
+    for m in re.finditer(r"store: (\S+) restored v(\d) in ([\d.]+)s \(like "
+                         r"([\d.]+)s, read ([\d.]+)s, install ([\d.]+)s\)",
+                         text):
+        restores.setdefault(f"v{m.group(2)}", {})[m.group(1)] = dict(
+            zip(("s", "like_s", "read_s", "install_s"),
+                map(float, m.groups()[2:])))
+    if len(restores.get("v1", {})) != 2:
+        fail(f"fabric rollout: expected two v1 restores, got {restores}")
+    per_version = store_bytes / 2
+    restore_s = [r["s"] for by in restores.values() for r in by.values()]
+    _emit_fabric("rollout", summary, run, device_line, paged=16,
+                 rollout={k: result.get(k) for k in
+                          ("status", "duration_s", "canary", "replicas",
+                           "replica_versions")},
+                 store={"bytes": store_bytes, "params": n_params,
+                        "publish_s": publish_s,
+                        "publish_gb_per_s": [per_version / s / 1e9
+                                             for s in publish_s],
+                        "restore_s": restores,
+                        "restore_gb_per_s": [per_version / s / 1e9
+                                             for s in restore_s]},
+                 cuda_memory_gb={"before": base_alloc / 1e9,
+                                 "peak": peak / 1e9})
+    return run
+
+
+def phase_fabric(device_line: str) -> dict:
+    """Returns each run's launches, by path name."""
+    from repro_torch import configs
+    cfg = configs.get("qwen2-1.5b")
+    runs = {}
+    # One replica behind the router: the router and registry layers
+    # alone, against phase 5's engine behind a batcher.
+    summary, run, _ = _fabric_run(
+        cfg, "fabric one replica", ("decode_attention", "flash_attention"),
+        replicas=1)
+    runs["fabric 1 replica qwen2-1.5b flat"] = run
+    _emit_fabric("one replica", summary, run, device_line, replicas=1)
+
+    with tempfile.TemporaryDirectory() as tel:
+        summary, run, _ = _fabric_run(
+            cfg, "fabric", ("decode_attention", "flash_attention"),
+            telemetry_dir=tel, trace_every=2)
+        for name in ("telemetry.json", "trace.json"):
+            if not os.path.getsize(os.path.join(tel, name)):
+                fail(f"fabric: the telemetry hub wrote no {name}")
+        with open(os.path.join(tel, "telemetry.json")) as f:
+            services = json.load(f)["services"]
+        with open(os.path.join(tel, "trace.json")) as f:
+            n_events = len(json.load(f)["traceEvents"])
+    engines = {k: v for k, v in services.items() if "EngineServer" in k}
+    routers = {k: v for k, v in services.items() if "Router" in k}
+    if len(engines) != 2 or any(e["retired"] < 1 or e["failed"]
+                                for e in engines.values()):
+        counts = {k: (e["retired"], e["failed"]) for k, e in engines.items()}
+        fail("fabric: each replica must retire requests and fail none "
+             f"(retired, failed): {counts}")
+    for name, r in routers.items():
+        if r["failovers"] or r["request_errors"] or r["overloaded"]:
+            fail(f"fabric: router {name} reports failures {r}")
+    runs["fabric qwen2-1.5b flat"] = run
+    _emit_fabric("fabric", summary, run, device_line, trace_events=n_events,
+                 engines={k: {c: e[c] for c in (
+                     "retired", "steps", "host_syncs", "generated_tokens",
+                     "mean_occupancy", "ewma_us_per_token")}
+                     for k, e in engines.items()},
+                 router={k: {c: r[c] for c in ("completed", "failovers",
+                                               "retries", "dispatches")}
+                         for k, r in routers.items()})
+
+    summary, run, text = _fabric_run(
+        cfg, "fabric failover", ("decode_attention", "flash_attention"),
+        kill_after=4)
+    if "fault: kill -> target 0 fired" not in text:
+        fail("fabric failover: the kill of replica 0 never fired")
+    runs["fabric failover qwen2-1.5b flat"] = run
+    _emit_fabric("failover", summary, run, device_line, kill_after=4)
+
+    runs["fabric rollout qwen2-1.5b paged ps=16"] = _rollout_run(
+        cfg, device_line)
+    return runs
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1081,11 +1314,12 @@ def main(argv=None) -> int:
     env = phase_environment()
     phase_build()
     records = phase_kernels()
-    # Launches on the main path: the engine runs of phases 4-5, each
+    # Launches on the main path: the engine runs of phases 4-6, each
     # path's counters reset just before its run and read just after.
     # ``launches`` is their sum; ``launches_by_path`` splits it.
     paths = {**phase_parity(env["nvidia_smi"]),
-             **phase_serve(env["nvidia_smi"])}
+             **phase_serve(env["nvidia_smi"]),
+             **phase_fabric(env["nvidia_smi"])}
     for r in records:
         r["launches_by_path"] = {path: run[r["name"]]
                                  for path, run in paths.items()}

@@ -12,7 +12,8 @@ reconstructed as zero-copy views over the received message — received
 arrays are read-only; call ``np.copy`` before mutating in place.
 
 CPU ``torch.Tensor``s are reduced through their numpy view at pickling
-time and come back as numpy. CUDA tensors are refused with a
+time and come back as numpy (bf16 as ``ml_dtypes.bfloat16``, as a bf16
+``jax.Array`` does). CUDA tensors are refused with a
 ``TypeError``: RPC surfaces hand over numpy, and a device buffer never
 travels implicitly (the caller copies to the host where it means to).
 There is no pre-serialization deep-copy pass over the payload: container
@@ -61,13 +62,22 @@ class RemoteError(RuntimeError):
     """An exception raised inside a remote service, re-raised client-side."""
 
 
-def _tensor_as_numpy(t: torch.Tensor) -> np.ndarray:
-    """The numpy view of a CPU tensor; a CUDA tensor is refused."""
+def tensor_as_numpy(t: torch.Tensor) -> np.ndarray:
+    """The numpy view of a CPU tensor; a CUDA tensor is refused.
+
+    numpy has no bfloat16, so a bf16 tensor is viewed as its int16 bits
+    reinterpreted as ``ml_dtypes.bfloat16`` — the same array a bf16
+    ``jax.Array`` becomes under ``np.asarray``. ``ml_dtypes`` is imported
+    only here, so a process that never ships bf16 never needs it."""
     if t.device.type != "cpu":
         raise TypeError(
             f"courier does not transport {t.device.type} tensors: pass "
             "numpy (or .cpu()) across an RPC boundary")
-    return t.detach().resolve_conj().resolve_neg().numpy()
+    t = t.detach().resolve_conj().resolve_neg()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def _as_readonly(arr: np.ndarray) -> np.ndarray:
@@ -106,7 +116,7 @@ def _pickler_cls():
             def reducer_override(self, obj):
                 if isinstance(obj, torch.Tensor):
                     return _as_readonly(
-                        _tensor_as_numpy(obj)).__reduce_ex__(5)
+                        tensor_as_numpy(obj)).__reduce_ex__(5)
                 if type(obj) is np.ndarray and obj.flags.writeable:
                     # Plain ndarrays are the only types that emit
                     # out-of-band buffers in this codebase (subclasses
@@ -378,7 +388,7 @@ def materialize(obj: Any) -> Any:
 
 def _legacy_to_transportable(obj: Any) -> Any:
     if isinstance(obj, torch.Tensor):
-        return _tensor_as_numpy(obj)
+        return tensor_as_numpy(obj)
     if isinstance(obj, (list, tuple)):
         conv = [_legacy_to_transportable(v) for v in obj]
         if isinstance(obj, tuple):

@@ -1,4 +1,4 @@
-"""Load a JAX parameter tree (numpy leaves) into the port's layout.
+"""Move parameter trees between the JAX package's layout and the port's.
 
 The JAX tree stacks every ``blocks`` leaf along a leading repeat axis
 (``repro/models/transformer.py:79-91``); the port keeps one superblock
@@ -11,6 +11,11 @@ leaves. Norm scales, the RG-LRU ``lam`` and the Mamba ``A_log`` and ``D``
 stay fp32 (they are used in fp32: ``-exp(A_log)``, ``u * D``, so a bf16
 copy would change the numbers); every other leaf is stored once in the
 compute dtype, which the forward pass reads without a per-call cast.
+
+``params_to_numpy`` is the inverse: it re-stacks the per-repeat blocks
+onto the leading repeat axis and writes every leaf as fp32 numpy, the
+layout the JAX package keeps (``param_dtype="float32"``) and restores
+from a ``ModelStore``. A bf16 leaf exports as its exact fp32 widening.
 """
 
 from __future__ import annotations
@@ -62,3 +67,27 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda",
         else:
             out[key] = _convert(sub, (key,), device, dtype)
     return out
+
+
+def _export(parts: list, stacked: bool) -> Any:
+    """``parts``: the same subtree once per repeat (or once). Each leaf
+    is copied, cast to fp32, into one fresh numpy array — stacked on a
+    leading axis when ``stacked``."""
+    if isinstance(parts[0], dict):
+        return {k: _export([p[k] for p in parts], stacked) for k in parts[0]}
+    out = np.empty((len(parts),) + tuple(parts[0].shape), np.float32)
+    dst = torch.from_numpy(out)
+    for r, leaf in enumerate(parts):
+        dst[r].copy_(leaf.detach())
+    return out if stacked else out[0]
+
+
+def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
+    """The port's parameter dict as the JAX ``init_params`` tree: fp32
+    numpy leaves with the JAX tree's keys, ``blocks`` stacked on the
+    repeat axis. Inverse of :func:`params_from_numpy`."""
+    if len(params.get("blocks", [])) != cfg.num_repeats:
+        raise ValueError(f"expected {cfg.num_repeats} block repeats, got "
+                         f"{len(params.get('blocks', []))}")
+    return {key: _export(sub if key == "blocks" else [sub], key == "blocks")
+            for key, sub in params.items()}

@@ -318,3 +318,47 @@ def test_cuda_engine_flash_matches_dense(cuda, arch, page_size):
         outs.append([f.result() for f in futs])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_courier_refuses_cuda_bf16_tensor(cuda):
+    """A device buffer never travels implicitly, bf16 included; its CPU
+    copy does (as ``ml_dtypes.bfloat16`` where that is installed)."""
+    from repro_torch.core.courier import serialization as ser
+    t = torch.ones(3, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="cuda tensors"):
+        ser.tensor_as_numpy(t)
+    with pytest.raises(TypeError, match="cuda tensors"):
+        ser.encode_call("f", (t,), {})
+
+
+@pytest.mark.gpu
+def test_cuda_engine_server_load_version_swaps_and_serves(cuda, tmp_path):
+    """An EngineServer on the card restores v0 from a store in the JAX
+    layout, hot-swaps to v1, and then serves v1's greedy tokens — those
+    of a fresh engine over v1's weights."""
+    from repro_torch.launch.serve import EngineServer, publish_demo_versions
+    from repro_torch.models import convert
+    cfg = configs.get_reduced("qwen2-1.5b")
+    store = str(tmp_path / "store")
+    publish_demo_versions(cfg, store, device=cuda)
+    prompt = np.arange(1, 9, dtype=np.int32)
+    server = EngineServer(cfg, max_new=6, num_slots=2, context_len=32,
+                          store_dir=store, version=0, device=cuda)
+    try:
+        out0 = np.asarray(server.generate(prompt))
+        server.load_version(1)
+        assert server.load()["version"] == 1
+        assert server.stats()["param_swaps"] == 1
+        out1 = np.asarray(server.generate(prompt))
+    finally:
+        server.kill()
+    p1 = convert.params_from_numpy(
+        cfg, convert.params_to_numpy(
+            cfg, transformer.init_params(cfg, seed=1, device=cuda)),
+        device=cuda)
+    with ServeEngine(cfg, p1, num_slots=2, context_len=32, max_new=6,
+                     device=cuda) as eng:
+        want = np.asarray(eng.submit(prompt).result(timeout=120))
+    np.testing.assert_array_equal(out1, want)
+    assert not np.array_equal(out0, out1)

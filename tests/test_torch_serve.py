@@ -598,13 +598,6 @@ def test_fm_build_program_serves_every_request(tmp_path):
     assert got["out_lens"] == [8] * 4
 
 
-def test_fabric_options_raise_not_implemented():
-    for kw in (dict(routers=1), dict(kill_after=1), dict(store_dir="x"),
-               dict(telemetry_dir="x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.build_program(CFG, device="cpu", **kw)
-
-
 def test_courier_sends_cpu_tensors_as_numpy_and_refuses_device_tensors():
     """The port's serialization: a CPU tensor travels out-of-band as its
     numpy view (framed and legacy formats); a tensor on any other device
@@ -618,6 +611,30 @@ def test_courier_sends_cpu_tensors_as_numpy_and_refuses_device_tensors():
         np.testing.assert_array_equal(args[0], t.numpy())
         np.testing.assert_array_equal(kwargs["x"][0], t[0].numpy())
     assert len(ser.encode_frames((t,))) == 2         # one out-of-band buffer
+    with pytest.raises(TypeError, match="meta tensors"):
+        ser.dumps(t.to("meta"))
+
+
+@pytest.mark.parametrize("legacy", [False, True])
+def test_courier_bf16_tensor_roundtrips_as_jax_bf16(legacy):
+    """ROADMAP.md C11: a bf16 CPU tensor travels as its bits viewed as
+    ``ml_dtypes.bfloat16`` and decodes bit-equal to what the JAX
+    package's courier makes of the same bf16 ``jax.Array``."""
+    from repro.core.courier import serialization as jser
+    from repro_torch.core.courier import serialization as ser
+    x = np.random.default_rng(0).standard_normal((3, 5)).astype(np.float32)
+    t = torch.from_numpy(x).to(torch.bfloat16)
+    ja = jnp.asarray(x, dtype=jnp.bfloat16)
+    got = ser.decode_call(ser.encode_call("f", (t, t.t()), {},
+                                          legacy=legacy))[1]
+    want = jser.decode_call(jser.encode_call("f", (ja, ja.T), {},
+                                             legacy=legacy))[1]
+    for g, w, src in zip(got, want, (t, t.t())):
+        assert g.dtype == w.dtype and g.dtype.name == "bfloat16"
+        assert g.shape == w.shape == tuple(src.shape)
+        np.testing.assert_array_equal(g.view(np.int16), w.view(np.int16))
+        np.testing.assert_array_equal(
+            g.view(np.int16), src.contiguous().view(torch.int16).numpy())
     with pytest.raises(TypeError, match="meta tensors"):
         ser.dumps(t.to("meta"))
 
@@ -640,7 +657,15 @@ def test_port_imports_no_jax_and_no_repro():
         import repro_torch
         from repro_torch import configs
         from repro_torch.models import transformer
-        from repro_torch.serve import decode
+        from repro_torch.serve import decode, rollout, router
+        from repro_torch.ckpt import checkpoint
+        from repro_torch.launch import serve
+        p = serve.build_program(configs.get_reduced("qwen2-1.5b"),
+                                routers=1, replicas=2, kill_after=1,
+                                store_dir="unused", rollout=1,
+                                rollout_after=1, telemetry_dir="unused",
+                                device="cpu")
+        assert len(p.groups["server"].nodes) == 2, p
         for arch in ("qwen2-1.5b", "recurrentgemma-2b", "falcon-mamba-7b"):
             cfg = configs.get_reduced(arch)
             params = transformer.init_params(cfg, seed=0, device="cpu")
@@ -657,11 +682,15 @@ def test_port_imports_no_jax_and_no_repro():
 
 
 def test_core_and_thread_serve_run_without_grpc_and_cloudpickle():
+    """The card's machine has no grpc, cloudpickle or ml_dtypes: the
+    single-engine program, the fabric with a replica killed, and a
+    rollout through a ModelStore all run without them over inproc."""
     out = _run_py("""
-        import importlib.abc, sys
+        import importlib.abc, sys, tempfile
+        BLOCKED = ("grpc", "cloudpickle", "ml_dtypes")
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("grpc", "cloudpickle"):
+                if name.split(".")[0] in BLOCKED:
                     raise ImportError(f"{name} blocked")
                 return None
         sys.meta_path.insert(0, Block())
@@ -674,8 +703,22 @@ def test_core_and_thread_serve_run_without_grpc_and_cloudpickle():
         p = serve.build_program(cfg, num_clients=1, requests_per_client=2,
                                 prompt_len=5, max_new=3, device="cpu")
         lp.launch_and_wait(p, timeout_s=120)
+        p = serve.build_program(cfg, num_clients=2, requests_per_client=2,
+                                prompt_len=5, max_new=3, routers=1,
+                                replicas=2, kill_after=1, device="cpu")
+        lp.launch_and_wait(p, timeout_s=120)
+        store = tempfile.mkdtemp()
+        serve.publish_demo_versions(cfg, store, device="cpu")
+        p = serve.build_program(cfg, num_clients=2, requests_per_client=2,
+                                prompt_len=5, max_new=3, routers=1,
+                                replicas=2, store_dir=store, model_version=0,
+                                rollout=1, rollout_after=1, device="cpu")
+        lp.launch_and_wait(p, timeout_s=120)
         print("MODS", [m for m in sys.modules
-                       if m.split(".")[0] in ("grpc", "cloudpickle")])
+                       if m.split(".")[0] in BLOCKED])
     """)
     assert "served 2 requests" in out
+    assert "fault: kill -> target 0 fired" in out
+    assert out.count("served 4 requests") == 2
+    assert "rollout: promoted -> v1" in out
     assert "MODS []" in out
