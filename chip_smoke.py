@@ -12,7 +12,9 @@ each of which ends the run with a non-zero exit on failure:
 3. kernels: hold each CUDA kernel (K1 flash-decode, K2 paged
    flash-decode, K3 prefill flash attention, K4 RG-LRU scan, K5 Mamba-1
    selective scan) against its plain PyTorch version on the card at the
-   serving path's full-width shapes and at edge shapes, to a tolerance
+   serving path's full-width shapes (phase 7's too: K3 non-causal at
+   HuBERT's dh 80 and at the vision cross layers' 128 x 1601, K1 over
+   the 1601-slot image memory) and at edge shapes, to a tolerance
    scaled to the output (shown to reject a dropped tile, a scan whose
    state was reset, or one whose output reads the previous state), and
    time kernel, plain version and a library yardstick;
@@ -32,7 +34,16 @@ each of which ends the run with a non-zero exit on failure:
    where replica 0 is killed mid-run, and a paged run that rolls the
    fleet from v0 to v1 of a ``ModelStore`` in the JAX package's layout;
    every request must be served at its length, both replicas must
-   retire requests, the kill must fire and the rollout must promote.
+   retire requests, the kill must fire and the rollout must promote;
+7. families: full-width Mixtral-8x7B (MoE) with its depth cut to 4
+   layers in fp32, where greedy tokens through K1/K3 must equal the plain
+   path's through ``ServeEngine``, and to 16 in bf16, served through
+   ``build_program`` (and its decode step timed); the Llama-3.2-Vision-11B
+   text decoder through ``generate(memory=...)`` over 1601 seeded patch
+   embeddings (fp32 parity at 10 layers, bf16 at its full 40); and
+   HuBERT-XLarge's full encoder (48 layers, dh 80) through
+   ``forward(embeddings=...)`` over 1500 frames, fp32 hidden states
+   through K3 against plain, and one timed bf16 forward.
 
 Prints JSON lines; the one before the last is the ``{"kernels": ...}``
 record, the last ``{"ok": true, "device": {...}}``. Exits non-zero, and
@@ -82,6 +93,10 @@ BF16_ULPS = 2
 FP32_TOL = 2e-5
 REL_L2_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 L2_FLUSH_BYTES = 64 << 20   # > the 50 MB L2: each timed launch starts cold
+# Phase 7's shapes: Llama-3.2-Vision's image memory (patch tokens of its
+# vision tower), and a 30-second clip at HuBERT's 50 frames a second.
+VISION_T = 1601
+HUBERT_S = 1500
 
 
 def emit(obj) -> None:
@@ -414,21 +429,43 @@ def phase_kernels() -> list[dict]:
     # KV head, dh 256, L = min(context, window) = 2048, rows at different
     # fill levels; bf16 as served, and fp32 q over the bf16 ring as in the
     # fp32 parity run.
-    rg = {}
+    others = {}
     for rb, q_dtype in ((1, torch.bfloat16), (3, torch.float32),
                         (8, torch.bfloat16)):
         lengths = [L, 1500, 77, L, 2000, 1024, 300, L][:rb]
         case = _decode_case(gen, rb, 10, 1, 256, L, q_dtype, lengths,
                             errors)
         del case["inputs"]
-        rg[f"recurrentgemma-2b LOCAL decode B={rb} q {q_dtype}"] = case
+        others[f"recurrentgemma-2b LOCAL decode B={rb} q {q_dtype}"] = case
+    # Llama-3.2-Vision's cross layers decode over the image memory: 32
+    # query / 8 KV heads, dh 128, 1601 patch slots, every one valid; bf16
+    # q as served, fp32 q as in the fp32 parity run.
+    for q_dtype in (torch.bfloat16, torch.float32):
+        case = _decode_case(gen, 8, 32, 8, 128, VISION_T, q_dtype,
+                            [VISION_T] * 8, errors)
+        del case["inputs"]
+        others[f"llama-3.2-vision-11b cross decode B=8 L={VISION_T} "
+               f"q {q_dtype}"] = case
+    # Mixtral-8x7B's bf16 serve decodes over its flat SWA rings: 32 query
+    # / 8 KV heads, dh 128, L = min(context, window) = 160 slots, rows at
+    # different fills; Llama-3.2-Vision's self-attention layers decode
+    # over the same 160-slot cache, its B=2 rows at one fill.
+    ctx = FAMILY_PLEN + FAMILY_NEW
+    for label, lengths in (
+            ("mixtral-8x7b SWA decode", [ctx, FAMILY_PLEN + 17,
+                                         FAMILY_PLEN + 1]),
+            ("llama-3.2-vision-11b self decode", [FAMILY_PLEN + 9] * 2)):
+        case = _decode_case(gen, len(lengths), 32, 8, 128, ctx,
+                            torch.bfloat16, lengths, errors)
+        del case["inputs"]
+        others[f"{label} B={len(lengths)} L={ctx} q bf16"] = case
     records.append({
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:86",
         "launches": None, "launches_by_path": None, **main,
         "bound_rate": "3.35 TB/s (H100 SXM datasheet)",
-        "other_shapes": rg,
+        "other_shapes": others,
     })
 
     n, item = L // ps, 2
@@ -491,10 +528,14 @@ def _flash_case(gen, B, Sq, Sk, H, KV, dh, causal, window, dtype):
 
 
 def _flash_attention_record(gen, errors) -> dict:
-    """K3: edge shapes, then the prefill path's two full-width shapes —
-    Qwen2-1.5B (causal, 12/2 heads, dh 128) and RecurrentGemma-2B's LOCAL
-    layers (window 2048, 10/1 heads, dh 256) — in bf16. The record's
-    numbers are RecurrentGemma's; Qwen2's stand under ``other_shapes``."""
+    """K3: edge shapes, then the prefill path's full-width causal shapes
+    in bf16 — Qwen2-1.5B (12/2 heads, dh 128), RecurrentGemma-2B's LOCAL
+    layers (window 2048, 10/1 heads, dh 256), Mixtral-8x7B (window 4096,
+    32/8 heads, dh 128, one prompt of FAMILY_PLEN as the engine prefills
+    it) and Llama-3.2-Vision's self-attention (32/8 heads, B=2 as
+    ``generate`` batches it) — then phase 7's non-causal shapes. The
+    record's numbers are RecurrentGemma's; the others stand under
+    ``other_shapes``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -508,6 +549,9 @@ def _flash_attention_record(gen, errors) -> dict:
         (3, 200, 200, 4, 2, 16, True, 50, torch.float32),
         (1, 500, 777, 6, 3, 64, True, None, torch.float32),
         (1, 260, 260, 2, 1, 256, False, None, torch.float32),
+        (2, 200, 333, 4, 2, 80, True, 100, torch.bfloat16),
+        (1, 130, 130, 4, 4, 80, True, None, torch.float32),
+        (1, 37, VISION_T, 4, 2, 80, False, None, torch.bfloat16),
     ]
     for B, Sq, Sk, H, KV, dh, causal, window, dtype in edges:
         _, out, expect = _flash_case(gen, B, Sq, Sk, H, KV, dh, causal,
@@ -520,6 +564,9 @@ def _flash_attention_record(gen, errors) -> dict:
     for label, (B, S, H, KV, dh, window) in {
             "qwen2-1.5b prefill": (1, 1536, 12, 2, 128, None),
             "recurrentgemma-2b LOCAL prefill": (1, 3072, 10, 1, 256, 2048),
+            "mixtral-8x7b prefill": (1, FAMILY_PLEN, 32, 8, 128, 4096),
+            "llama-3.2-vision-11b self prefill": (2, FAMILY_PLEN, 32, 8, 128,
+                                                  None),
     }.items():
         (q, k, v), out, expect = _flash_case(gen, B, S, S, H, KV, dh, True,
                                              window, torch.bfloat16)
@@ -536,7 +583,7 @@ def _flash_attention_record(gen, errors) -> dict:
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
         bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if window is None:
+        if window is None or window >= S:          # the band is causal
             def lib():
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -561,6 +608,15 @@ def _flash_attention_record(gen, errors) -> dict:
             "library_ms": _time_ms(lib), "library_call": lib_call,
             "shape": dict(B=B, S=S, H=H, KV=KV, dh=dh, window=window,
                           causal=True, dtype="bfloat16")}
+    for label, (B, Sq, Sk, H, KV, dh) in {
+            "hubert-xlarge encoder": (1, HUBERT_S, HUBERT_S, 16, 16, 80),
+            "llama-3.2-vision-11b cross prefill": (1, 128, VISION_T, 32, 8,
+                                                   128),
+    }.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            shapes[f"{label} {str(dtype).split('.')[1]}"] = \
+                _flash_non_causal_case(gen, label, B, Sq, Sk, H, KV, dh,
+                                       dtype, errors)
     main = shapes.pop("recurrentgemma-2b LOCAL prefill")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -568,6 +624,47 @@ def _flash_attention_record(gen, errors) -> dict:
             "launches": None, "launches_by_path": None, **main,
             "bound_rate": "989 TFLOP/s bf16, 3.35 TB/s (H100 SXM datasheet)",
             "other_shapes": shapes}
+
+
+def _flash_non_causal_case(gen, label, B, Sq, Sk, H, KV, dh, dtype,
+                           errors) -> dict:
+    """K3 with causal=False and no window (every query sees every key;
+    the right alignment of Sq < Sk must not matter) at one of phase 7's
+    shapes: the check, a dropped 64-key tile rejected, the bound (every
+    one of the Sq x Sk pairs) and the times beside SDPA's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    (q, k, v), out, expect = _flash_case(gen, B, Sq, Sk, H, KV, dh, False,
+                                         None, dtype)
+    name = (f"K3 {label} B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} dh={dh} "
+            f"non-causal {dtype}")
+    c = _check(name, out, expect, errors)
+    dropped = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+    dropped[:, Sk // 2:Sk // 2 + 64] = False
+    margin = _rejects(name, ref.masked_attention(q, k, v, dropped), expect,
+                      errors, "one 64-key tile dropped")
+    flops = 4 * B * H * Sq * Sk * dh                  # q.k and p.v FMAs
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
+        * q.element_size()
+    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return {**c, "dropped_tile_over_tol": margin,
+            "ms": _time_ms(lambda: fa.flash_attention(q, k, v,
+                                                      causal=False)),
+            "device_ms": _device_ms(lambda: fa.flash_attention(
+                q, k, v, causal=False)),
+            "plain_ms": _time_ms(lambda: ref.flash_attention(
+                q, k, v, False, None), iters=10),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": nbytes, "bound_flops": flops,
+            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True)),
+            "library_call": "F.scaled_dot_product_attention(enable_gqa), "
+                            "no mask",
+            "shape": dict(B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, dh=dh,
+                          causal=False, dtype=str(dtype).split(".")[1])}
 
 
 def _rglru_scan_record(gen, errors) -> dict:
@@ -800,12 +897,15 @@ def _drive(cfg, params, prompts, **kw) -> tuple:
     return outs, run, hits
 
 
-def _step_logits(cfg, params, seq, impl: str, context_len: int):
+def _step_logits(cfg, params, seq, impl: str, context_len: int,
+                 memory=None):
     """Logits predicting the token after ``seq`` through the prefill of
-    ``seq[:-1]`` and one decode step, both on route ``impl``."""
+    ``seq[:-1]`` (over ``memory`` [1,T,D] for a cross-attention stack)
+    and one decode step, both on route ``impl``."""
     from repro_torch.models import transformer
     toks = torch.as_tensor(seq, device="cuda")[None]
     _, state = transformer.prefill(cfg, params, tokens=toks[:, :-1],
+                                   memory=memory,
                                    context_len=context_len, impl=impl)
     logits, _ = transformer.decode_step(cfg, params, state, toks[:, -1:],
                                         len(seq) - 1, attn_impl=impl)
@@ -813,13 +913,16 @@ def _step_logits(cfg, params, seq, impl: str, context_len: int):
 
 
 def _compare_tokens(cfg, params, prompts, ref, got, max_new, context_len,
-                    label) -> int:
+                    label, memories=None) -> int:
     """Every token equal, except at a near-tie of the dense path (top-2
     margin < PARITY_TIE), where that step's flash and dense logits must
     agree within PARITY_TIE and the rest of the request (a different
-    context from there on) is not compared. Returns the near-tie count."""
+    context from there on) is not compared. ``memories``: each request's
+    frontend memory [1,T,D], for a cross-attention stack. Returns the
+    near-tie count."""
     ties = 0
-    for p, a, b in zip(prompts, ref, got):
+    memories = memories or [None] * len(prompts)
+    for p, a, b, mem in zip(prompts, ref, got, memories):
         if a.shape != (len(p) + max_new,) or b.shape != a.shape:
             fail(f"{label}: output shape {b.shape} / {a.shape}")
         if not ((b >= 0) & (b < cfg.vocab_size)).all():
@@ -828,8 +931,8 @@ def _compare_tokens(cfg, params, prompts, ref, got, max_new, context_len,
         if diff.size == 0:
             continue
         seq = a[:diff[0]]
-        dense = _step_logits(cfg, params, seq, "dense", context_len)
-        flash = _step_logits(cfg, params, seq, "flash", context_len)
+        dense = _step_logits(cfg, params, seq, "dense", context_len, mem)
+        flash = _step_logits(cfg, params, seq, "flash", context_len, mem)
         top2 = torch.topk(dense, 2).values
         margin = float(top2[0] - top2[1])
         err = float((flash - dense).abs().max())
@@ -1300,6 +1403,333 @@ def phase_fabric(device_line: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 7. families: Mixtral-8x7B (MoE), Llama-3.2-Vision-11B (cross-attention),
+#    HuBERT-XLarge (audio encoder), full width
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B is 46.7 B parameters, 93.4 GB in bf16: more than the
+# card's 80 GB. Its depth is cut, never its width: 4 layers in fp32 for
+# the parity run (24.3 GB), 16 in bf16 for serving (47.0 GB).
+MIXTRAL_PARITY_LAYERS, MIXTRAL_SERVE_LAYERS = 4, 16
+# Llama-3.2-Vision's parity run keeps two superblocks (4 self + 1 cross
+# layer each) in fp32; the bf16 run is the whole 40-layer decoder.
+VISION_PARITY_LAYERS = 10
+FAMILY_PLEN, FAMILY_NEW = 128, 32
+# HuBERT's fp32 hidden states through K3 against the plain path: the two
+# differ by the kernel's summation order only (~1e-6 relative per layer,
+# and a CPU run of a 48-layer stack with 1e-6 relative noise added to
+# every attention output ends 1.2e-6 apart in relative L2), so these
+# limits are 100x that and far below a wrong attention output.
+HUBERT_REL_L2_TOL, HUBERT_MAX_ABS_TOL = 1e-4, 1e-3
+
+
+def _family_cfg(arch: str, **kw):
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(arch), **kw)
+
+
+def _collect() -> None:
+    """Give the card back what the caller just deleted."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _decode_step_ms(cfg, params, B: int, steps: int = 10) -> dict:
+    """A bf16 prefill of B x FAMILY_PLEN tokens and ``steps`` greedy
+    decode steps through the kernels, each on the host clock ending in a
+    synchronize, then one profiled step's device time by kernel."""
+    from repro_torch.models import transformer
+    rng = np.random.default_rng(4)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, FAMILY_PLEN))
+                           .astype(np.int32), device="cuda")
+    ctx = FAMILY_PLEN + FAMILY_NEW
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = transformer.prefill(cfg, params, tokens=toks,
+                                        context_len=ctx, impl="flash")
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    feed = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    t = torch.full((B,), FAMILY_PLEN, dtype=torch.int32, device="cuda")
+    times = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = transformer.decode_step(cfg, params, state, feed,
+                                                t + i, attn_impl="flash")
+        feed = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    dev = _device_ms(lambda: transformer.decode_step(
+        cfg, params, state, feed, t + steps, attn_impl="flash"), iters=3,
+        every=True)
+    total = sum(dev.values())
+    return {"batch": B, "prefill_ms": prefill_ms,
+            "step_ms": sorted(times)[len(times) // 2], "step_ms_runs": times,
+            "step_device_ms_total": total,
+            "step_top_device_ms": dict(sorted(dev.items(),
+                                              key=lambda kv: -kv[1])[:8])}
+
+
+def _mixtral(device_line: str) -> dict:
+    from repro_torch import core as lp
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    paths = {}
+    rng = np.random.default_rng(5)
+
+    # fp32 parity through ServeEngine, kernels against plain.
+    cfg = _family_cfg("mixtral-8x7b", num_layers=MIXTRAL_PARITY_LAYERS,
+                      compute_dtype="float32")
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    prompts = [rng.integers(0, cfg.vocab_size, FAMILY_PLEN).astype(np.int32)
+               for _ in range(2)]
+    ctx = FAMILY_PLEN + FAMILY_NEW
+    common = dict(num_slots=2, context_len=ctx, max_new=FAMILY_NEW)
+    ref, _, _ = _drive(cfg, params, prompts, decode_impl="dense", **common)
+    outs, run, _ = _drive(cfg, params, prompts, decode_impl="flash",
+                          **common)
+    ties = _compare_tokens(cfg, params, prompts, ref, outs, FAMILY_NEW, ctx,
+                           "mixtral parity")
+    for name in ("decode_attention", "flash_attention"):
+        if not run[name]:
+            fail(f"mixtral parity flash run launched no {name} kernel")
+    label = f"families mixtral-8x7b parity {MIXTRAL_PARITY_LAYERS} layers fp32"
+    paths[label] = run
+    emit({"phase": "families", "run": "mixtral-8x7b parity",
+          "config": f"mixtral-8x7b full width, {MIXTRAL_PARITY_LAYERS} of 32 "
+          "layers, fp32 compute, seeded random weights",
+          "params": cfg.param_count(), "prompt_lens": [len(p) for p in prompts],
+          "max_new": FAMILY_NEW, "near_ties": ties, "launches": run,
+          "seconds": time.perf_counter() - t0, "device": device_line})
+    del params
+    _collect()
+
+    # bf16 at 16 layers: the decode step timed, then build_program.
+    cfg = _family_cfg("mixtral-8x7b", num_layers=MIXTRAL_SERVE_LAYERS)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    step = _decode_step_ms(cfg, params, B=3)
+    del params
+    _collect()
+    n_clients, per_client = 3, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        summary_path = os.path.join(tmp, "meter.json")
+        program = serve.build_program(
+            cfg, num_clients=n_clients, requests_per_client=per_client,
+            prompt_len=FAMILY_PLEN, max_new=FAMILY_NEW,
+            meter_json=summary_path)
+        _reset_launches()
+        t0 = time.perf_counter()
+        lp.launch_and_wait(program, timeout_s=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        run = _read_launches()
+        with open(summary_path) as f:
+            summary = json.load(f)
+    del program
+    _collect()
+    total = n_clients * per_client
+    label = f"families mixtral-8x7b serve {MIXTRAL_SERVE_LAYERS} layers bf16"
+    if summary["count"] != total:
+        fail(f"{label}: served {summary['count']} of {total} requests")
+    if summary["out_lens"] != [FAMILY_PLEN + FAMILY_NEW] * total:
+        fail(f"{label}: wrong output lengths {summary['out_lens']}")
+    for name in ("decode_attention", "flash_attention"):
+        if not run[name]:
+            fail(f"{label} launched no {name} kernel")
+    paths[label] = run
+    emit({"phase": "families", "run": "mixtral-8x7b serve",
+          "config": f"mixtral-8x7b full width, {MIXTRAL_SERVE_LAYERS} of 32 "
+          "layers, bf16, seeded random weights",
+          "params": cfg.param_count(), "requests": summary["count"],
+          "prompt_len": FAMILY_PLEN, "max_new": FAMILY_NEW,
+          "p50_ms": summary["p50_ms"], "p95_ms": summary["p95_ms"],
+          "mean_ms": summary["mean_ms"], "wall_s": wall,
+          "generated_tokens_per_s_wall": total * FAMILY_NEW / wall,
+          "decode": step, "launches": run, "device": device_line})
+    return paths
+
+
+def _vision(device_line: str) -> dict:
+    from repro_torch.models import transformer
+    from repro_torch.serve import decode as serve_lib
+    paths = {}
+    B = 2
+
+    def inputs(cfg, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        prompt = torch.randint(0, cfg.vocab_size, (B, FAMILY_PLEN),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+        memory = torch.randn((B, VISION_T, cfg.d_model), generator=gen,
+                             device="cuda")
+        return prompt, memory
+
+    def check(cfg, out, prompt, label):
+        if out.shape != (B, FAMILY_PLEN + FAMILY_NEW):
+            fail(f"{label}: output shape {tuple(out.shape)}")
+        if not torch.equal(out[:, :FAMILY_PLEN], prompt):
+            fail(f"{label}: the prompt was not kept")
+        if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+            fail(f"{label}: token out of the vocabulary")
+
+    cfg = _family_cfg("llama-3.2-vision-11b",
+                      num_layers=VISION_PARITY_LAYERS,
+                      compute_dtype="float32")
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    prompt, memory = inputs(cfg, 6)
+    dense = serve_lib.generate(cfg, params, prompt, FAMILY_NEW,
+                               memory=memory, attn_impl="dense")
+    _reset_launches()
+    flash = serve_lib.generate(cfg, params, prompt, FAMILY_NEW,
+                               memory=memory, attn_impl="flash")
+    torch.cuda.synchronize()
+    run = _read_launches()
+    label = (f"families llama-3.2-vision-11b parity "
+             f"{VISION_PARITY_LAYERS} layers fp32")
+    check(cfg, flash, prompt, label)
+    ctx = FAMILY_PLEN + FAMILY_NEW
+    ties = _compare_tokens(
+        cfg, params, [p for p in prompt.cpu().numpy()],
+        list(dense.cpu().numpy()), list(flash.cpu().numpy()), FAMILY_NEW,
+        ctx, label, memories=[memory[b:b + 1] for b in range(B)])
+    for name in ("decode_attention", "flash_attention"):
+        if not run[name]:
+            fail(f"{label} launched no {name} kernel")
+    paths[label] = run
+    emit({"phase": "families", "run": "llama-3.2-vision-11b parity",
+          "config": f"llama-3.2-vision-11b text decoder, full width, "
+          f"{VISION_PARITY_LAYERS} of 40 layers, fp32 compute, seeded "
+          "random weights and patch embeddings",
+          "params": cfg.param_count(), "batch": B, "memory_tokens": VISION_T,
+          "prompt_len": FAMILY_PLEN, "max_new": FAMILY_NEW,
+          "near_ties": ties, "launches": run,
+          "seconds": time.perf_counter() - t0, "device": device_line})
+    del params, memory
+    _collect()
+
+    cfg = _family_cfg("llama-3.2-vision-11b")
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    prompt, memory = inputs(cfg, 7)
+    _reset_launches()
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve_lib.generate(cfg, params, prompt, FAMILY_NEW,
+                                 memory=memory)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    run = _read_launches()
+    label = "families llama-3.2-vision-11b generate 40 layers bf16"
+    check(cfg, out, prompt, label)
+    for name in ("decode_attention", "flash_attention"):
+        if not run[name]:
+            fail(f"{label} launched no {name} kernel")
+    paths[label] = run
+    emit({"phase": "families", "run": "llama-3.2-vision-11b generate",
+          "config": "llama-3.2-vision-11b text decoder, full width and "
+          "depth (32 self + 8 cross layers), bf16, seeded random weights "
+          "and patch embeddings", "params": cfg.param_count(), "batch": B,
+          "memory_tokens": VISION_T, "prompt_len": FAMILY_PLEN,
+          "max_new": FAMILY_NEW, "generate_s": walls,
+          "generated_tokens_per_s": B * FAMILY_NEW / walls[-1],
+          "launches": run, "device": device_line})
+    del params, memory
+    _collect()
+    return paths
+
+
+def _hubert(device_line: str) -> dict:
+    from repro_torch.models import transformer
+    paths = {}
+    cfg = _family_cfg("hubert-xlarge", compute_dtype="float32")
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    frames = torch.randn((1, HUBERT_S, cfg.d_model), generator=gen,
+                         device="cuda")
+    dense, _ = transformer.forward(cfg, params, embeddings=frames,
+                                   impl="dense")
+    _reset_launches()
+    flash, _ = transformer.forward(cfg, params, embeddings=frames,
+                                   impl="flash")
+    torch.cuda.synchronize()
+    run = _read_launches()
+    label = "families hubert-xlarge forward 48 layers fp32"
+    if run["flash_attention"] != cfg.num_layers:
+        fail(f"{label}: {run['flash_attention']} flash_attention launches, "
+             f"not one per layer ({cfg.num_layers})")
+    logits = transformer.logits_from_hidden(cfg, params, flash)
+    if flash.shape != (1, HUBERT_S, cfg.d_model) or \
+            logits.shape != (1, HUBERT_S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{label}: hidden {tuple(flash.shape)} / logits "
+             f"{tuple(logits.shape)} not as expected or not finite")
+    err = (flash - dense).abs()
+    rel_l2 = (err.norm() / dense.norm()).item()
+    max_abs = err.max().item()
+    if rel_l2 > HUBERT_REL_L2_TOL or max_abs > HUBERT_MAX_ABS_TOL:
+        fail(f"{label}: hidden states through K3 differ from plain: rel L2 "
+             f"{rel_l2} (limit {HUBERT_REL_L2_TOL}), max |err| {max_abs} "
+             f"(limit {HUBERT_MAX_ABS_TOL})")
+    paths[label] = run
+    fp32 = {"max_abs_err": max_abs, "rel_l2_err": rel_l2,
+            "rel_l2_tol": HUBERT_REL_L2_TOL, "max_abs_tol": HUBERT_MAX_ABS_TOL,
+            "hidden_max_abs": dense.abs().max().item()}
+    del params, dense, flash, logits
+    _collect()
+
+    cfg = _family_cfg("hubert-xlarge")
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+
+    def run_bf16():
+        return transformer.forward(cfg, params, embeddings=frames)
+
+    _reset_launches()
+    run_bf16()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hidden, _ = run_bf16()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    run = _read_launches()
+    label = "families hubert-xlarge forward 48 layers bf16"
+    if run["flash_attention"] != 4 * cfg.num_layers:
+        fail(f"{label}: {run['flash_attention']} flash_attention launches "
+             f"in 4 forwards of {cfg.num_layers} layers")
+    if not bool(torch.isfinite(hidden.float()).all()):
+        fail(f"{label}: non-finite hidden states")
+    paths[label] = run
+    dev = _device_ms(run_bf16, iters=1, every=True)
+    total = sum(dev.values())
+    emit({"phase": "families", "run": "hubert-xlarge forward",
+          "config": "hubert-xlarge full width and depth (48 layers, 16 "
+          "heads of dh 80), seeded random weights and frame embeddings",
+          "params": cfg.param_count(), "frames": HUBERT_S, "fp32": fp32,
+          "bf16_forward_ms": sorted(times)[1], "bf16_forward_ms_runs": times,
+          "bf16_device_ms_total": total,
+          "bf16_flash_attention_device_ms": dev.get("flash_tc_kernel"),
+          "bf16_top_device_ms": dict(sorted(dev.items(),
+                                            key=lambda kv: -kv[1])[:8]),
+          "launches": run, "device": device_line})
+    del params, frames
+    _collect()
+    return paths
+
+
+def phase_families(device_line: str) -> dict:
+    """Returns each run's launches, by path name."""
+    return {**_mixtral(device_line), **_vision(device_line),
+            **_hubert(device_line)}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1314,12 +1744,13 @@ def main(argv=None) -> int:
     env = phase_environment()
     phase_build()
     records = phase_kernels()
-    # Launches on the main path: the engine runs of phases 4-6, each
+    # Launches on the main path: the engine runs of phases 4-7, each
     # path's counters reset just before its run and read just after.
     # ``launches`` is their sum; ``launches_by_path`` splits it.
     paths = {**phase_parity(env["nvidia_smi"]),
              **phase_serve(env["nvidia_smi"]),
-             **phase_fabric(env["nvidia_smi"])}
+             **phase_fabric(env["nvidia_smi"]),
+             **phase_families(env["nvidia_smi"])}
     for r in records:
         r["launches_by_path"] = {path: run[r["name"]]
                                  for path, run in paths.items()}

@@ -52,7 +52,10 @@
 //     and runs tile t's softmax while the value product is on the tensor
 //     cores (at dh 256 the registers hold no second P: one product, then
 //     the softmax, then the other);
-//   * head dims below 64 are zero-padded to one 64-column slab;
+//   * the head dim is zero-padded up to whole 64-column slabs (16 and 32
+//     to 64, 80 to 128; the zero columns add nothing to q.k and are not
+//     stored), and the S product stops at the last 16 columns that hold
+//     data (5 of 8 steps at dh 80); the P V product runs the padded width;
 //   * the k loop runs from the first tile that can hold a key inside the
 //     window to the last causal tile (the Pallas kernel's pl.when), and a
 //     warpgroup skips a tile none of its rows sees;
@@ -64,9 +67,10 @@
 // cores would keep only about three digits, so it stays off them:
 //   * one block per (64-query tile, query head, row), 256 threads as a
 //     16 x 16 grid, each owning a 4 x 4 block of scores and 4 rows x dh/16
-//     columns of the output accumulator, so the softmax statistics of a
-//     row stay within 16 neighbouring lanes (shuffle reductions) and the
-//     rescale by alpha needs no exchange;
+//     columns of the output accumulator (read from V in runs of 4, 2 or 1
+//     columns, whichever divides dh/16: 1 at dh 80), so the softmax
+//     statistics of a row stay within 16 neighbouring lanes (shuffle
+//     reductions) and the rescale by alpha needs no exchange;
 //   * Q and K are staged transposed ([dh][tile]) so each score step reads
 //     two float4s for 16 FMAs; V row-major with rows padded by 16 bytes so
 //     the staging stores are free of bank conflicts; the same tile
@@ -107,7 +111,8 @@ __global__ void __launch_bounds__(NT)
   constexpr int VPR = DH / VEC;          // vectors per row
   constexpr int DHP = Smem<DH>::DHP;
   constexpr int CPT = DH / 16;           // output columns per thread
-  constexpr int VW = CPT < 4 ? CPT : 4;  // columns per shared-memory read
+  // Columns per shared-memory read: it must divide CPT (dh 80: CPT 5).
+  constexpr int VW = CPT % 4 == 0 ? 4 : (CPT % 2 == 0 ? 2 : 1);
   constexpr int NCH = CPT / VW;
   constexpr int KV_ITERS = (BK * VPR + NT - 1) / NT;
   constexpr int UNROLL = KV_ITERS < 4 ? KV_ITERS : 4;
@@ -323,7 +328,8 @@ struct Cfg {
   static constexpr int NWG = DH <= 128 ? 1 : 2;
   static constexpr int BQ = 64 * NWG;                  // queries per block
   static constexpr int NT = 128 * NWG;                 // threads
-  static constexpr int DP = DH < 64 ? 64 : DH;         // padded head dim
+  static constexpr int DP = (DH + 63) / 64 * 64;       // padded head dim
+  static constexpr int KS = (DH + 15) / 16;            // S product's k steps
   static constexpr uint32_t Q = BQ * DP * 2;           // bytes of the Q tile
   static constexpr uint32_t KV = BK * DP * 2;          // of one K or V tile
   static constexpr size_t bytes = Q + 2 * STAGES * KV + 1024;  // + alignment
@@ -472,7 +478,7 @@ __global__ void __launch_bounds__(Cfg<DH>::NT, 1)
   auto issue_s = [&](int t, float (&s)[32]) {
     const uint32_t sk = sK + (t % STAGES) * S::KV;
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
+    for (int kk = 0; kk < S::KS; ++kk)
       wgmma_ss_m64n64k16(
           s,
           sw128_desc(sQ + (kk / 4) * (BQ * 128) + wg * (64 * 128) +
@@ -704,6 +710,7 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
     REPRO_DH_CASE(16)
     REPRO_DH_CASE(32)
     REPRO_DH_CASE(64)
+    REPRO_DH_CASE(80)
     REPRO_DH_CASE(128)
     REPRO_DH_CASE(256)
     default:

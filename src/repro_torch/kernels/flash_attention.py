@@ -28,7 +28,7 @@ from repro_torch.kernels import _build, ref
 # launches and nowhere else.
 launches = {"flash_attention": 0}
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # 80: HuBERT-XLarge
 # The C entry point for each dtype: the tensor-core kernel for bf16, the
 # FMA kernel for float32.
 ENTRY = {torch.bfloat16: "repro_flash_attention_bf16",

@@ -39,10 +39,16 @@ restored from ``--store``.
         --replicas 2 --routers 1 --rollout-after 2
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch mixtral-8x7b --device cpu
 
-Attention-only (qwen2), RG-LRU + LOCAL (recurrentgemma) and Mamba-1
-(falcon-mamba) stacks serve here; the recurrent ones keep per-row state
-in the engine. MoE, vision and audio stacks are ROADMAP.md queue item Q5.
+Attention-only (qwen2, qwen3, starcoder2, command-r-plus), MoE (mixtral-8x7b
+and mixtral-8x22b: sliding-window attention with top-2 experts), RG-LRU +
+LOCAL (recurrentgemma) and Mamba-1 (falcon-mamba) stacks serve here; the
+recurrent ones keep per-row state in the engine. Llama-3.2-Vision needs
+image memory, which no engine request carries: it is served by
+``serve.decode.generate(memory=...)``, and the engine refuses it. HuBERT
+is an encoder with no decode step (``transformer.forward(embeddings=...)``).
 """
 
 from __future__ import annotations

@@ -1,15 +1,17 @@
-"""GQA self-attention (global / sliding-window / local), the single-token
-decode path against a KV cache (flat ring or paged pool), and chunked
-prefill — the port of ``repro.models.attention`` for attention stacks.
+"""GQA self-attention (global / sliding-window / local / bidirectional),
+cross-attention to frontend memory, the single-token decode path against
+a KV cache (flat ring or paged pool) or the stored cross memory, and
+chunked prefill — the port of ``repro.models.attention``.
 
 The plain attention matrix products stay ``torch.einsum`` (the JAX
 package leaves them to XLA). Prefill and decode attention take an
 ``impl`` leaf switch: ``"flash"`` hands q, K/V and the mask to the CUDA
 kernels' wrappers — ``kernels.flash_attention`` for a whole sequence,
 ``kernels.decode_attention`` for one token against the ring's ``valid``
-mask — which run their plain version only for a CPU tensor; ``"dense"``
-is the einsum path (``_sdpa`` / ``_sdpa_grouped``), the parity
-reference; ``"auto"`` means flash on a CUDA device — the counterpart of
+mask (an all-true one over the cross memory) — which run their plain
+version only for a CPU tensor; ``"dense"`` is the einsum path
+(``_sdpa`` / ``_sdpa_grouped``), the parity reference; ``"auto"`` means
+flash on a CUDA device — the counterpart of
 "flash on TPU" in the JAX package. Softcapped configs always take the
 dense path (the kernels have no softcap).
 
@@ -37,6 +39,8 @@ Q_CHUNK = 2048
 
 
 def init_attention(cfg: ModelConfig, gen, device, dtype) -> dict:
+    """The same leaves for self- and cross-attention: the two differ only
+    in what K/V are projected from."""
     d, h, kv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
         "wq": layers.init_linear(gen, d, h * dh, device, dtype,
@@ -173,6 +177,56 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    memory: torch.Tensor, impl: str = "auto",
+                    return_kv: bool = False):
+    """Cross-attention of x [B,Sq,D] to frontend memory [B,Sk,D] (VLM):
+    no RoPE, no mask (qk-norm if the config sets it). ``"flash"`` runs the
+    prefill kernel non-causal over Sk = the memory's length; ``"dense"``
+    the einsum path. With ``return_kv`` also returns the memory's (k, v),
+    which the decode state keeps."""
+    q, k, v = _project_qkv(cfg, p, x, memory)
+    B, Sq = x.shape[:2]
+    if _resolve_impl(impl, x) == "flash" and _flash_eligible(cfg):
+        out = flash_prefill.flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal=False)
+    else:
+        out = _sdpa(cfg, q, k, v, torch.zeros((), dtype=torch.float32,
+                                              device=x.device))
+    out = out.reshape(B, Sq, cfg.num_heads * cfg.head_dim)
+    out = layers.apply_linear(p["wo"], out)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def cross_decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                           cache: dict, impl: str = "auto") -> torch.Tensor:
+    """One token x [B,1,D] against the cross memory the prefill stored
+    (``cache`` {"k_mem"/"v_mem": [B,T,KV,dh]}): q is projected from x
+    alone, and every one of the T slots is valid. ``"flash"`` runs the
+    flash-decode kernel with an all-true ``valid``; ``"dense"`` the
+    grouped einsum. Returns the attention output [B,1,D]."""
+    B = x.shape[0]
+    q = layers.apply_linear(p["wq"], x).reshape(B, 1, cfg.num_heads,
+                                                cfg.head_dim)
+    if cfg.qk_norm:
+        q = _headwise_rms(q, p["q_norm"]["scale"], cfg.norm_eps)
+    k, v = cache["k_mem"], cache["v_mem"]
+    T = k.shape[1]
+    if _resolve_impl(impl, x) == "flash" and _flash_eligible(cfg):
+        valid = torch.ones((B, T), dtype=torch.bool, device=x.device)
+        out = flash_decode.decode_attention(q[:, 0], _kernel_kv(k, q),
+                                            _kernel_kv(v, q), valid)
+        out = out[:, None]                                     # [B,1,H,dh]
+    else:
+        bias = torch.zeros((B, 1, 1, T), dtype=torch.float32,
+                           device=x.device)
+        out = _sdpa_grouped(cfg, q, k.to(q.dtype), v.to(q.dtype), bias)
+    out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
+    return layers.apply_linear(p["wo"], out)
 
 
 def _ring_len(cfg: ModelConfig, context_len: int, kind: str) -> int:

@@ -139,16 +139,19 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_embed(cfg: ModelConfig, gen, device, dtype) -> dict:
-    if cfg.conv_pos:
-        raise NotImplementedError(
-            "conv positional embeddings (HuBERT) are not ported yet: "
-            "ROADMAP.md queue item Q5 (MoE, VLM and audio)")
     w = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                     device=device) * (cfg.d_model ** -0.5)
     p = {"tokens": w.to(dtype)}
     if not cfg.tie_embeddings:
         p["head"] = init_linear(gen, cfg.d_model, cfg.vocab_size, device,
                                 dtype)
+    if cfg.conv_pos:
+        # HuBERT's grouped conv positional embedding, in the JAX layout
+        # [width, D / groups, D] (lax.conv's WIO).
+        w, g = cfg.conv_pos_width, cfg.conv_pos_groups
+        k = torch.randn((w, cfg.d_model // g, cfg.d_model), generator=gen,
+                        device=device) * ((w * cfg.d_model // g) ** -0.5)
+        p["conv_pos"] = k.to(dtype)
     return p
 
 
@@ -158,6 +161,21 @@ def embed_tokens(cfg: ModelConfig, p: dict, tokens: torch.Tensor
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
+
+
+def add_conv_pos(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x + gelu(grouped conv1d of x over the sequence), with XLA's SAME
+    padding: width - 1 zeros split with the smaller half on the left (63
+    left and 64 right at HuBERT's even width 128). A no-op without the
+    ``conv_pos`` leaf."""
+    if "conv_pos" not in p:
+        return x
+    w = p["conv_pos"].to(x.dtype).permute(2, 1, 0)     # WIO -> [D, D/g, W]
+    width = w.shape[-1]
+    left = (width - 1) // 2
+    xt = F.pad(x.transpose(1, 2), (left, width - 1 - left))
+    pos = F.conv1d(xt, w, groups=cfg.conv_pos_groups).transpose(1, 2)
+    return x + _gelu(pos)
 
 
 def lm_logits(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

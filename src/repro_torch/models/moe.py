@@ -1,0 +1,133 @@
+"""Mixtral-style token-choice top-k MoE — the port of ``repro.models.moe``.
+
+The function is the JAX package's exactly, including which tokens are
+dropped: router logits in x's dtype, then fp32 softmax; the top-k breaks
+ties toward the lower expert index (``jax.lax.top_k``'s order; a stable
+descending sort gives it, ``torch.topk`` promises none); the chosen gates
+are renormalised over the top-k before capacity is applied, and a token
+whose position in its expert's buffer (``cumsum(mask) * mask - 1`` along
+the sequence, per row) reaches the capacity ``C`` has its gate zeroed.
+
+Only the dispatch is formulated differently. The JAX package multiplies
+one-hot ``[B, S, E, C]`` dispatch and combine tensors into its einsums
+(TPU-friendly, no gather); here each kept (token, choice) is scattered
+by index into its slot of ``[E, B*C, D]`` expert buffers, the experts run
+as batched products over those buffers, and the combine gathers each
+token's K expert outputs back by the same index. A one-hot product with a
+single non-zero term per output is exact, so the buffers hold the same
+values; the combine sums the K gated outputs in fp32 and rounds once to
+x's dtype, as an einsum with fp32 accumulation does. There is no CUDA
+kernel here: the JAX MoE runs no Pallas kernel either (XLA einsums), and
+the batched products go to ``torch.bmm`` as the JAX package leaves them
+to XLA. Every expert's weights are read on every call, whatever the
+routing, as in the JAX package's stacked einsums.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+# Tokens are routed within groups of at most this many tokens when the
+# sequence is a whole number of groups longer than one (GShard grouping);
+# capacity is then per group. Tests shrink it, on both packages alike.
+GROUP_TOKENS = 4096
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator, device, dtype) -> dict:
+    """Router and stacked expert weights in the JAX tree's layout:
+    ``router`` [D, E], ``w_gate``/``w_up`` [E, D, F], ``w_down`` [E, F, D]."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    s_in, s_out = d ** -0.5, f ** -0.5
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    return {
+        "router": layers.init_linear(gen, d, e, device, dtype),
+        "w_gate": normal((e, d, f), s_in),
+        "w_up": normal((e, d, f), s_in),
+        "w_down": normal((e, f, d), s_out),
+    }
+
+
+def topk_mask(probs: torch.Tensor, k: int) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """[.., E] -> (indices [.., k] of the top-k, highest first and ties
+    to the lower index; the 0/1 mask [.., E] in ``probs``' dtype)."""
+    idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    idx = idx[..., :k]
+    mask = torch.zeros_like(probs).scatter_(-1, idx, 1.0)
+    return idx, mask
+
+
+def route(cfg: ModelConfig, p: dict, x: torch.Tensor) -> dict:
+    """The router's decisions for x [B, S, D] (one group): ``probs`` and
+    the top-k ``mask`` [B,S,E] fp32, ``idx`` [B,S,K] the chosen experts,
+    ``pos`` [B,S,E] each token's buffer position (-1 where not chosen),
+    ``in_cap`` [B,S,E] the choices that fit the capacity ``C`` (a chosen
+    expert outside it is a dropped token), ``gates`` [B,S,E] fp32,
+    renormalised over the top-k and zero where dropped."""
+    E, K, S = cfg.num_experts, cfg.experts_per_token, x.shape[1]
+    C = max(int(cfg.moe_capacity_factor * K * S / E), 1)
+    logits = layers.apply_linear(p["router"], x).float()         # [B,S,E]
+    probs = torch.softmax(logits, dim=-1)
+    idx, mask = topk_mask(probs, K)
+    gates = probs * mask
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    pos = torch.cumsum(mask, dim=1) * mask - 1.0
+    in_cap = (pos >= 0) & (pos < C)
+    gates = torch.where(in_cap, gates, torch.zeros_like(gates))
+    return {"probs": probs, "mask": mask, "idx": idx, "pos": pos,
+            "in_cap": in_cap, "gates": gates, "C": C}
+
+
+def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] -> (out [B, S, D] in x's dtype, aux_loss fp32 scalar)."""
+    B0, S0, D = x.shape
+    if S0 > GROUP_TOKENS and S0 % GROUP_TOKENS == 0:
+        n = S0 // GROUP_TOKENS
+        out, aux = apply_moe(cfg, p, x.reshape(B0 * n, GROUP_TOKENS, D))
+        return out.reshape(B0, S0, D), aux
+
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    r = route(cfg, p, x)
+    C, idx = r["C"], r["idx"]
+
+    # Each (token, choice): its buffer slot in [E, B, C] and its gate.
+    k_pos = torch.gather(r["pos"], -1, idx).long()               # [B,S,K]
+    k_gate = torch.gather(r["gates"], -1, idx).to(x.dtype)
+    k_kept = torch.gather(r["in_cap"], -1, idx)
+    rows = torch.arange(B, device=x.device)[:, None, None]
+    slot = (idx * B + rows) * C + k_pos
+    trash = E * B * C                                            # dropped
+    slot = torch.where(k_kept, slot, torch.full_like(slot, trash))
+
+    # Dispatch: scatter the kept tokens into the expert buffers (the
+    # dropped ones all land on the trash row, which is cut off).
+    xe = x.new_zeros((trash + 1, D))
+    src = x[:, :, None, :].expand(B, S, K, D).reshape(-1, D)
+    xe.index_put_((slot.reshape(-1),), src)
+    xe = xe[:trash].view(E, B * C, D)
+
+    w_gate = p["w_gate"].to(x.dtype)
+    w_up = p["w_up"].to(x.dtype)
+    w_down = p["w_down"].to(x.dtype)
+    h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)      # [E,BC,F]
+    ye = torch.bmm(h, w_down).reshape(E * B * C, D)
+
+    # Combine: each token's K gated expert outputs, summed in fp32. A
+    # dropped choice reads row 0 under a zero gate.
+    got = ye[torch.where(k_kept, slot, torch.zeros_like(slot))]  # [B,S,K,D]
+    y = (k_gate.float()[..., None] * got.float()).sum(dim=2).to(x.dtype)
+
+    f_e = r["mask"].mean(dim=(0, 1))                             # routed share
+    p_e = r["probs"].mean(dim=(0, 1))                            # router prob
+    aux = E * torch.sum(f_e * p_e) * cfg.router_aux_loss
+    return y, aux

@@ -1,4 +1,5 @@
-"""Backbone assembly for attention, RG-LRU and Mamba stacks: the port of
+"""Backbone assembly for every block kind of the JAX package (attention,
+cross-attention, RG-LRU, Mamba; dense or MoE MLPs): the port of
 ``repro.models.transformer``.
 
 Parameters are a dict tree like the JAX package's, except that
@@ -13,9 +14,12 @@ place.
 
 RG-LRU blocks keep fp32 ``{"h": [B, W], "conv": [B, K-1, W]}`` state,
 per row, and Mamba blocks fp32 ``{"h": [B, Di, N], "conv": [B, K-1,
-Di]}``; a Mamba block has no MLP half, as in the JAX package. Blocks of
-kind XATTN, and experts, are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP.md queue item that ports them.
+Di]}``; a Mamba block has no MLP half, as in the JAX package. XATTN
+blocks keep ``{"k_mem", "v_mem": [B, T, KV, dh]}``, the frontend memory's
+K/V projected once by the prefill (``memory=``), in the cache dtype. With
+``cfg.num_experts`` every MLP half is the MoE of ``models.moe``, and
+``forward`` returns the sum of its auxiliary losses. Audio encoders take
+``embeddings=`` in place of tokens and add the conv positional embedding.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.models import attention, layers, rglru, ssm
+from repro_torch.models import attention, layers, moe, rglru, ssm
 from repro_torch.models.config import (ATTN, LOCAL, MAMBA, RGLRU, SWA, XATTN,
                                        ModelConfig)
 
@@ -32,15 +36,39 @@ _ATTN_KINDS = (ATTN, SWA, LOCAL)
 _RECURRENT_KINDS = (RGLRU, MAMBA)
 
 
+def block_kinds(cfg: ModelConfig) -> set[str]:
+    """The kinds of block the stack holds."""
+    return set(cfg.pattern) | set(cfg.remainder)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run yet."""
-    kinds = set(cfg.pattern) | set(cfg.remainder)
-    if XATTN in kinds or cfg.num_experts or cfg.conv_pos:
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention, experts and audio frontends are "
-            "not ported yet — ROADMAP.md queue item Q5 (MoE, VLM and audio)")
-    if kinds - set(_ATTN_KINDS) - set(_RECURRENT_KINDS):
+    """Raise for a block kind the port does not know."""
+    kinds = block_kinds(cfg)
+    if kinds - set(_ATTN_KINDS) - set(_RECURRENT_KINDS) - {XATTN}:
         raise ValueError(f"unknown block kinds {sorted(kinds)}")
+
+
+def _memory(cfg: ModelConfig, memory: Optional[torch.Tensor],
+            x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The frontend memory in x's dtype; a stack with cross-attention
+    blocks cannot run without it."""
+    if memory is None:
+        if XATTN in block_kinds(cfg):
+            raise ValueError(f"{cfg.name} has cross-attention blocks: pass "
+                             "memory= (frontend embeddings [B, T, D])")
+        return None
+    return memory.to(x.dtype)
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens, embeddings):
+    """Token embeddings, or the audio frontend's frame embeddings in the
+    compute dtype; then the conv positional embedding where the config
+    has one."""
+    if embeddings is not None:
+        x = embeddings.to(layers.cdtype(cfg))
+    else:
+        x = layers.embed_tokens(cfg, params["embed"], tokens)
+    return layers.add_conv_pos(cfg, params["embed"], x)
 
 
 def _layers(cfg: ModelConfig):
@@ -75,7 +103,10 @@ def _init_block(cfg: ModelConfig, kind: str, gen, device, dtype) -> dict:
     else:
         p["attn"] = attention.init_attention(cfg, gen, device, dtype)
     p["mlp_norm"] = layers.init_norm(cfg, device)
-    p["mlp"] = layers.init_mlp(cfg, gen, device, dtype)
+    if cfg.num_experts:
+        p["mlp"] = moe.init_moe(cfg, gen, device, dtype)
+    else:
+        p["mlp"] = layers.init_mlp(cfg, gen, device, dtype)
     return p
 
 
@@ -112,25 +143,37 @@ def params_device(params: dict) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def _mlp_half(cfg: ModelConfig, kind: str, p: dict,
-              x: torch.Tensor) -> torch.Tensor:
+              x: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x + MLP(norm(x)), the MoE's aux loss or None)."""
     if kind == MAMBA:                   # the Mamba block subsumes the MLP
-        return x
+        return x, None
     h = layers.apply_norm(cfg, p["mlp_norm"], x)
-    return x + layers.apply_mlp(cfg, p["mlp"], h)
+    if cfg.num_experts:
+        h, aux = moe.apply_moe(cfg, p["mlp"], h)
+        return x + h, aux
+    return x + layers.apply_mlp(cfg, p["mlp"], h), None
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
-def forward(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
+def forward(cfg: ModelConfig, params: dict, *,
+            tokens: Optional[torch.Tensor] = None,
+            embeddings: Optional[torch.Tensor] = None,
+            memory: Optional[torch.Tensor] = None,
             impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (hidden [B,S,D], aux_loss).
+    """Full-sequence forward over ``tokens`` [B,S] or frame
+    ``embeddings`` [B,S,D] (audio), with frontend ``memory`` [B,T,D] for
+    cross-attention blocks. Returns (hidden [B,S,D], aux_loss: the sum of
+    the MoE layers' load-balance losses, fp32, 0 without experts).
     ``impl`` picks the attention and scan route (see ``prefill``)."""
     check_supported(cfg)
-    x = layers.embed_tokens(cfg, params["embed"], tokens)
+    x = _embed(cfg, params, tokens, embeddings)
+    memory = _memory(cfg, memory, x)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for group, r, i, kind in _layers(cfg):
         p = _block_params(params, group, r, i)
         h = layers.apply_norm(cfg, p["norm"], x)
@@ -138,12 +181,17 @@ def forward(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
             h, _ = rglru.apply_rglru_block(cfg, p["rglru"], h, impl=impl)
         elif kind == MAMBA:
             h, _ = ssm.apply_mamba_block(cfg, p["mamba"], h, impl=impl)
+        elif kind == XATTN:
+            h = attention.cross_attention(cfg, p["attn"], h, memory,
+                                          impl=impl)
         else:
             h = attention.self_attention(cfg, p["attn"], h, positions, kind,
                                          impl=impl)
-        x = _mlp_half(cfg, kind, p, x + h)
+        x, aux = _mlp_half(cfg, kind, p, x + h)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_total
 
 
 def logits_from_hidden(cfg: ModelConfig, params: dict,
@@ -151,7 +199,10 @@ def logits_from_hidden(cfg: ModelConfig, params: dict,
     return layers.lm_logits(cfg, params["embed"], x)
 
 
-def prefill(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
+def prefill(cfg: ModelConfig, params: dict, *,
+            tokens: Optional[torch.Tensor] = None,
+            memory: Optional[torch.Tensor] = None,
+            embeddings: Optional[torch.Tensor] = None,
             context_len: Optional[int] = None,
             cache_dtype=torch.bfloat16, impl: str = "auto"):
     """Full-sequence forward that also builds the decode state.
@@ -159,12 +210,14 @@ def prefill(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
     ``impl`` ("auto" | "dense" | "flash") picks the route of every
     attention block (the flash-attention kernel or the dense einsum) and
     every RG-LRU and selective scan (the scan kernel or the plain loop);
-    "auto" means the kernels on a CUDA device.
+    "auto" means the kernels on a CUDA device. Cross-attention blocks
+    attend to ``memory`` [B,T,D] and store its K/V in ``cache_dtype``.
 
     Returns (logits [B,S,V], decode_state positioned at t = S).
     """
     check_supported(cfg)
-    x = layers.embed_tokens(cfg, params["embed"], tokens)
+    x = _embed(cfg, params, tokens, embeddings)
+    memory = _memory(cfg, memory, x)
     B, S = x.shape[:2]
     context_len = context_len or S
     positions = _positions(B, S, x.device)
@@ -178,13 +231,18 @@ def prefill(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
         elif kind == MAMBA:
             h, caches[group, r, i] = ssm.apply_mamba_block(
                 cfg, p["mamba"], h, want_state=True, impl=impl)
+        elif kind == XATTN:
+            h, (k, v) = attention.cross_attention(
+                cfg, p["attn"], h, memory, impl=impl, return_kv=True)
+            caches[group, r, i] = {"k_mem": k.to(cache_dtype),
+                                   "v_mem": v.to(cache_dtype)}
         else:
             h, (k, v) = attention.self_attention(
                 cfg, p["attn"], h, positions, kind, return_kv=True,
                 impl=impl)
             caches[group, r, i] = attention.build_cache_from_full(
                 cfg, k, v, context_len, kind, cache_dtype)
-        x = _mlp_half(cfg, kind, p, x + h)
+        x, _ = _mlp_half(cfg, kind, p, x + h)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     logits = layers.lm_logits(cfg, params["embed"], x)
     return logits, _assemble_state(cfg, caches)
@@ -217,7 +275,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, context_len: int,
     With ``page_size``/``num_pages`` set, full-context ATTN layers hold
     one shared ``[num_pages, page_size, KV, dh]`` pool addressed through a
     per-row page table instead of per-row ``[batch, L]`` rings; windowed
-    rings stay per-row.
+    rings stay per-row. Cross-attention blocks hold ``[batch, T, KV,
+    dh]`` memory K/V (T = ``cfg.frontend_tokens``), per row.
     """
     check_supported(cfg)
 
@@ -227,12 +286,17 @@ def init_decode_state(cfg: ModelConfig, batch: int, context_len: int,
                    else ssm.init_mamba_state(cfg, batch, device))
             return {leaf: z.new_zeros(lead + z.shape)
                     for leaf, z in one.items()}
-        if kind == ATTN and page_size is not None:
+        leaves = ("k", "v")
+        if kind == XATTN:
+            leaves = ("k_mem", "v_mem")
+            shp = (batch, cfg.frontend_tokens, cfg.num_kv_heads,
+                   cfg.head_dim)
+        elif kind == ATTN and page_size is not None:
             shp = attention.paged_kv_cache_shape(cfg, num_pages, page_size)
         else:
             shp = attention.kv_cache_shape(cfg, batch, context_len, kind)
         return {leaf: torch.zeros(lead + shp, dtype=dtype, device=device)
-                for leaf in ("k", "v")}
+                for leaf in leaves}
 
     state: dict[str, Any] = {}
     if cfg.num_repeats:
@@ -409,7 +473,8 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
                 pages: Optional[torch.Tensor] = None):
     """One decode step. tokens [B,1]; ``t`` = absolute position, a scalar
     or a ``[B]`` vector. ``attn_impl`` ("auto" | "dense" | "flash") picks
-    the attention leaf of every ATTN/SWA/LOCAL block; RG-LRU and Mamba
+    the attention leaf of every ATTN/SWA/LOCAL block and of every
+    cross-attention block (over the stored memory K/V); RG-LRU and Mamba
     blocks take one recurrence step (no kernel, as in the JAX package).
     With ``pages`` ([B, n_log] int32), full-context ATTN layers read their
     state as the shared page pool. The state is updated in place and returned.
@@ -427,13 +492,16 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
                 h, new = ssm.apply_mamba_block(cfg, p["mamba"], h, cache)
             for leaf, dst in cache.items():
                 dst.copy_(new[leaf])
+        elif kind == XATTN:
+            h = attention.cross_decode_attention(cfg, p["attn"], h, cache,
+                                                 impl=attn_impl)
         elif kind == ATTN and pages is not None:
             h, _ = attention.paged_decode_attention(cfg, p["attn"], h, cache,
                                                     t, pages, impl=attn_impl)
         else:
             h, _ = attention.decode_attention(cfg, p["attn"], h, cache, t,
                                               kind, impl=attn_impl)
-        x = _mlp_half(cfg, kind, p, x + h)
+        x, _ = _mlp_half(cfg, kind, p, x + h)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     return layers.lm_logits(cfg, params["embed"], x), state
 
@@ -448,8 +516,10 @@ def prefill_extend(cfg: ModelConfig, params: dict, state: dict,
     prompt tokens at positions ``t0 .. t0+C-1``. Returns (last-position
     logits [B,1,V], state positioned at ``t0 + C``). Attention-only
     stacks: the engine gates recurrent ones to exact-length prefill, as
-    the JAX package does."""
-    kinds = set(cfg.pattern) | set(cfg.remainder)
+    the JAX package does. An MoE layer routes each chunk on its own, so
+    its capacity is the chunk's (as in the JAX package), not the whole
+    prompt's."""
+    kinds = block_kinds(cfg)
     if kinds - set(_ATTN_KINDS):
         raise ValueError(f"{cfg.name}: chunked prefill needs an "
                          f"attention-only stack, not {sorted(kinds)}")
@@ -459,6 +529,6 @@ def prefill_extend(cfg: ModelConfig, params: dict, state: dict,
         cache = _leaf_view(state, group, r, i)
         h = layers.apply_norm(cfg, p["norm"], x)
         h, _ = attention.extend_attention(cfg, p["attn"], h, cache, t0, kind)
-        x = _mlp_half(cfg, kind, p, x + h)
+        x, _ = _mlp_half(cfg, kind, p, x + h)
     x = layers.apply_norm(cfg, params["final_norm"], x[:, -1:])
     return layers.lm_logits(cfg, params["embed"], x), state

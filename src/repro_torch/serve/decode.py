@@ -104,10 +104,11 @@ def make_fused_serve_step(cfg: ModelConfig, steps: int,
 
 def make_prefill(cfg: ModelConfig, context_len: Optional[int] = None,
                  impl: str = "auto"):
-    """(params, tokens [B,S]) -> (logits, decode state); ``impl`` picks
-    the prefill route (``transformer.prefill``)."""
-    def prefill_step(params, tokens):
-        return transformer.prefill(cfg, params, tokens=tokens,
+    """(params, tokens [B,S], memory?, embeddings?) -> (logits, decode
+    state); ``impl`` picks the prefill route (``transformer.prefill``)."""
+    def prefill_step(params, tokens, memory=None, embeddings=None):
+        return transformer.prefill(cfg, params, tokens=tokens, memory=memory,
+                                   embeddings=embeddings,
                                    context_len=context_len, impl=impl)
     return prefill_step
 
@@ -116,7 +117,7 @@ _MASKABLE = {"attn", "swa", "local", "xattn"}
 
 
 def _check_ragged_supported(cfg: ModelConfig, S: int, context_len: int):
-    kinds = set(cfg.pattern) | set(cfg.remainder)
+    kinds = transformer.block_kinds(cfg)
     if kinds - _MASKABLE:
         raise ValueError(
             f"ragged generate (lengths=...) needs an attention-only stack; "
@@ -136,7 +137,8 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, max_new: int,
              context_len: Optional[int] = None, temperature: float = 0.0,
              gen: Optional[torch.Generator] = None,
              lengths=None, top_k: Optional[int] = None,
-             attn_impl: str = "auto") -> torch.Tensor:
+             attn_impl: str = "auto",
+             memory: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prefill + decode: prompt [B, S] -> tokens [B, S + max_new] (int32,
     on the prompt's device).
 
@@ -146,6 +148,9 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, max_new: int,
     ``out[b, lengths[b]:lengths[b]+max_new]``; the tail keeps the pad.
     Recurrent stacks refuse padded rows (their state would absorb the
     pad). ``attn_impl`` picks the prefill and decode routes alike.
+    ``memory`` [B, T, D] is the frontend's embeddings (image patches)
+    that cross-attention blocks attend to; the prefill stores its K/V
+    and every decode step reads them.
     """
     B, S = prompt.shape
     device = prompt.device
@@ -159,6 +164,7 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, max_new: int,
     else:
         t0 = torch.full((B,), S, dtype=torch.int32, device=device)
     logits, state = transformer.prefill(cfg, params, tokens=prompt,
+                                        memory=memory,
                                         context_len=context_len,
                                         impl=attn_impl)
     rows = torch.arange(B, device=device)

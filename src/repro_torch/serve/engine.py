@@ -44,6 +44,11 @@ and t=0. A stack without a full-context ATTN layer (RecurrentGemma:
 RG-LRU and LOCAL blocks; Falcon-Mamba) has nothing to page: it accepts
 the knobs and keeps the flat per-row layout, as in the JAX package.
 
+Every decoder stack serves, MoE ones (Mixtral: flat SWA rings) included,
+except one with cross-attention blocks: its requests would need image
+memory, so the engine refuses it up front and names
+``serve.decode.generate(memory=...)``.
+
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device the default raises.
 """
@@ -63,7 +68,7 @@ import torch
 
 from repro_torch.core import telemetry
 from repro_torch.models import transformer
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import XATTN, ModelConfig
 from repro_torch.serve import decode as serve_lib
 
 _CHUNKABLE_KINDS = {"attn", "swa", "local"}
@@ -136,6 +141,11 @@ class ServeEngine:
         transformer.check_supported(cfg)
         if not cfg.decode_supported:
             raise ValueError(f"{cfg.name} has no autoregressive decode step")
+        if XATTN in transformer.block_kinds(cfg):
+            raise ValueError(
+                f"{cfg.name} has cross-attention blocks, and the engine takes "
+                "no image memory: serve it with "
+                "serve.decode.generate(memory=...)")
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if sync_every < 1:
@@ -160,7 +170,7 @@ class ServeEngine:
         self._gen = (torch.Generator(device=self._dev).manual_seed(seed)
                      if temperature else None)
 
-        kinds = set(cfg.pattern) | set(cfg.remainder)
+        kinds = transformer.block_kinds(cfg)
         # Paged pool geometry: the ring modulus is context_len rounded UP
         # to whole pages (L_pad); submit() still rejects prompt+max_new >
         # context_len, so positions never wrap.

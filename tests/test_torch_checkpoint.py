@@ -5,7 +5,9 @@ the layout shared with the JAX package: byte-equal manifests and leaf
 files, a port-published model version restored bit for bit by the JAX
 ``ModelStore``, a JAX-published one by the port's, equal config hashes,
 and ``params_to_numpy`` (ROADMAP.md C12) as the exact inverse of
-``params_from_numpy``. The elastic reshard case waits for the port's
+``params_from_numpy`` for every family: MoE (router and stacked expert
+leaves), cross-attention and the audio encoder's ``embed.conv_pos``
+included. The elastic reshard case waits for the port's
 sharding (queue item Q7).
 """
 
@@ -25,7 +27,8 @@ from repro_torch.ckpt import checkpoint
 from repro_torch.models import convert
 from repro_torch.models import transformer as tt
 
-ARCHS = ("qwen2-1.5b", "recurrentgemma-2b", "falcon-mamba-7b")
+ARCHS = ("qwen2-1.5b", "recurrentgemma-2b", "falcon-mamba-7b",
+         "mixtral-8x7b", "llama-3.2-vision-11b", "hubert-xlarge")
 
 
 @pytest.fixture(autouse=True)

@@ -103,7 +103,7 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("case", [
     # B, Sq, Sk, H, KV, causal, window
     (2, 200, 200, 4, 2, True, None),          # ragged S
@@ -138,6 +138,58 @@ def test_cuda_flash_attention_full_prefill_shapes(cuda, case):
     v = _randn(gen, (B, S, KV, dh), torch.bfloat16, cuda)
     out = fa.flash_attention(q, k, v, causal=True, window=window)
     _assert_matches_plain(out, ref.flash_attention(q, k, v, True, window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # B, Sq, Sk, H, KV, dh
+    (1, 1500, 1500, 16, 16, 80),      # HuBERT-XLarge: bidirectional, dh 80
+    (2, 128, 1601, 32, 8, 128),       # Llama-3.2-Vision cross: Sq < Sk
+    (1, 37, 1601, 4, 2, 80),          # ragged Sq and Sk, dh 80
+])
+def test_cuda_flash_attention_non_causal_new_shapes(cuda, dtype, case):
+    """Non-causal K3 at the audio encoder's and the vision cross layers'
+    shapes: with causal=False and no window the right alignment of the
+    queries must not matter, and the unmasked fast path must hold for a
+    ragged Sk of 1601 (25 tiles and one key)."""
+    B, Sq, Sk, H, KV, dh = case
+    gen = torch.Generator(device=cuda).manual_seed(Sk + dh)
+    q = _randn(gen, (B, Sq, H, dh), dtype, cuda)
+    k = _randn(gen, (B, Sk, KV, dh), dtype, cuda)
+    v = _randn(gen, (B, Sk, KV, dh), dtype, cuda)
+    out = fa.flash_attention(q, k, v, causal=False)
+    _assert_matches_plain(out, ref.flash_attention(q, k, v, False, None))
+    # Every query sees every key: the plain version over an all-true mask.
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=cuda)
+    _assert_matches_plain(out, ref.masked_attention(q, k, v, ok))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_all_valid_image_memory(cuda, q_dtype):
+    """K1 over Llama-3.2-Vision's cross memory: L = 1601 slots, every one
+    valid, bf16 K/V as the decode state stores them."""
+    gen = torch.Generator(device=cuda).manual_seed(1601)
+    B, H, KV, dh, L = 8, 32, 8, 128, 1601
+    q = _randn(gen, (B, H, dh), q_dtype, cuda)
+    k = _randn(gen, (B, L, KV, dh), torch.bfloat16, cuda)
+    v = _randn(gen, (B, L, KV, dh), torch.bfloat16, cuda)
+    valid = torch.ones((B, L), dtype=torch.bool, device=cuda)
+    out = dec.decode_attention(q, k, v, valid)
+    _assert_matches_plain(out, ref.decode_attention(q, k, v, valid))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_wrapper_takes_dh80_and_refuses_dh96(cuda):
+    q = torch.zeros((1, 8, 2, 80), device=cuda)
+    before = fa.launches["flash_attention"]
+    out = fa.flash_attention(q, q, q, causal=False)
+    assert fa.launches["flash_attention"] == before + 1
+    assert bool((out == 0).all())
+    q = torch.zeros((1, 8, 2, 96), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q, causal=False)
 
 
 @pytest.mark.gpu
@@ -295,11 +347,13 @@ def test_cuda_prefill_wrappers_reject_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("arch,page_size", [("qwen2-1.5b", None),
                                             ("qwen2-1.5b", 4),
                                             ("recurrentgemma-2b", None),
-                                            ("falcon-mamba-7b", None)])
+                                            ("falcon-mamba-7b", None),
+                                            ("mixtral-8x7b", None)])
 def test_cuda_engine_flash_matches_dense(cuda, arch, page_size):
     """The reduced config's engine on the card: greedy tokens through the
     kernels (prefill flash attention, the RG-LRU and selective scans,
-    flash-decode) equal the plain PyTorch path's."""
+    flash-decode; Mixtral's MoE around them) equal the plain PyTorch
+    path's."""
     import dataclasses
     cfg = dataclasses.replace(configs.get_reduced(arch),
                               compute_dtype="float32")
@@ -318,6 +372,49 @@ def test_cuda_engine_flash_matches_dense(cuda, arch, page_size):
         outs.append([f.result() for f in futs])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_vision_generate_flash_matches_dense(cuda):
+    """Reduced Llama-3.2-Vision on the card: ``generate(memory=...)``
+    through the kernels (K3 causal and non-causal over the memory, K1
+    over the rings and over the all-valid memory) gives the plain path's
+    greedy tokens, and launches both kernels."""
+    import dataclasses
+    from repro_torch.serve import decode as serve_lib
+    cfg = dataclasses.replace(configs.get_reduced("llama-3.2-vision-11b"),
+                              compute_dtype="float32")
+    params = transformer.init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    memory = torch.randn((2, cfg.frontend_tokens, cfg.d_model),
+                         generator=gen, device=cuda)
+    outs = []
+    for impl in ("dense", "flash"):
+        before = (fa.launches["flash_attention"],
+                  dec.launches["decode_attention"])
+        outs.append(serve_lib.generate(cfg, params, prompt, 6,
+                                       memory=memory, attn_impl=impl))
+        after = (fa.launches["flash_attention"],
+                 dec.launches["decode_attention"])
+        assert (after != before) == (impl == "flash")
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+def test_cuda_hubert_forward_flash_matches_dense(cuda):
+    """Reduced HuBERT on the card at fp32: hidden states through K3
+    (non-causal) within 1e-4 of the plain path's."""
+    import dataclasses
+    cfg = dataclasses.replace(configs.get_reduced("hubert-xlarge"),
+                              compute_dtype="float32")
+    params = transformer.init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 37, cfg.d_model), generator=gen, device=cuda)
+    dense, _ = transformer.forward(cfg, params, embeddings=x, impl="dense")
+    flash, _ = transformer.forward(cfg, params, embeddings=x, impl="flash")
+    torch.testing.assert_close(flash, dense, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu

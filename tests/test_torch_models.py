@@ -256,11 +256,74 @@ def test_bf16_compute_logits_close():
                                np.asarray(jl, np.float32), rtol=0, atol=0.1)
 
 
-def test_unported_blocks_raise_naming_the_roadmap():
-    for arch, item in (("mixtral-8x7b", "Q5"),
-                       ("llama-3.2-vision-11b", "Q5")):
-        with pytest.raises(NotImplementedError, match=item):
-            tt.init_params(configs.get_reduced(arch), device="cpu")
+def test_every_arch_is_supported_and_initialises():
+    """No architecture of the JAX package is refused: the port's own
+    ``init_params`` builds each reduced config with the JAX tree's keys
+    and leaf shapes (``blocks`` unstacked per repeat)."""
+    for arch in jconfigs.ARCH_NAMES:
+        cfg = configs.get_reduced(arch)
+        tt.check_supported(cfg)
+        tp = tt.init_params(cfg, seed=0, device="cpu")
+        want = jt.param_shapes(jconfigs.get_reduced(arch))
+        got = convert.params_to_numpy(cfg, tp)
+        assert jax.tree_util.tree_structure(got) == \
+            jax.tree_util.tree_structure(want), arch
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            assert a.shape == b.shape, arch
+
+
+# -- the other attention configs: qwen3 (qk-norm), starcoder2 (LayerNorm,
+# -- GELU MLP, biases, SWA), command-r-plus (LayerNorm, tied embeddings) -----
+
+@pytest.fixture(scope="module", params=["qwen3-8b", "starcoder2-3b",
+                                        "command-r-plus-104b"])
+def dense_model(request):
+    cfg = dataclasses.replace(jconfigs.get_reduced(request.param),
+                              compute_dtype="float32")
+    jp = jt.init_params(cfg, jax.random.key(0))
+    tp = convert.params_from_numpy(cfg, _np_tree(jp), device="cpu")
+    return cfg, jp, tp
+
+
+def test_dense_configs_forward_match(dense_model):
+    cfg, jp, tp = dense_model
+    toks = _tokens(2, 20, seed=9)              # past starcoder2's window
+    jh, _ = jt.forward(cfg, jp, tokens=jnp.asarray(toks))
+    th, _ = tt.forward(cfg, tp, tokens=torch.from_numpy(toks))
+    np.testing.assert_allclose(
+        tt.logits_from_hidden(cfg, tp, th).numpy(),
+        np.asarray(jt.logits_from_hidden(cfg, jp, jh)), **LOGIT_TOL)
+
+
+def test_dense_configs_prefill_match(dense_model):
+    cfg, jp, tp = dense_model
+    toks = _tokens(2, 20, seed=10)
+    jl, js = jt.prefill(cfg, jp, tokens=jnp.asarray(toks), context_len=24)
+    tl, ts = tt.prefill(cfg, tp, tokens=torch.from_numpy(toks),
+                        context_len=24)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    _assert_tree_close(ts, js, **CACHE_TOL)
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_dense_configs_decode_step_match(dense_model, impl):
+    """An fp32 cache: with a bf16 one, the new token's K/V can sit on a
+    bf16 rounding midpoint and round to neighbouring values in the two
+    frameworks (starcoder2 at t=9: 1e-3 on the logits), which says
+    nothing about the port."""
+    cfg, jp, tp = dense_model
+    toks = _tokens(3, 18, seed=11)
+    _, js = jt.prefill(cfg, jp, tokens=jnp.asarray(toks), context_len=24,
+                       cache_dtype=jnp.float32)
+    ts = _to_torch_tree(js)
+    feed = _tokens(3, 1, seed=12)
+    t = np.array([18, 9, 23], np.int32)
+    jl, js2 = jt.decode_step(cfg, jp, js, jnp.asarray(feed), jnp.asarray(t),
+                             attn_impl=impl)
+    tl, ts2 = tt.decode_step(cfg, tp, ts, torch.from_numpy(feed),
+                             torch.from_numpy(t), attn_impl=impl)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    _assert_tree_close(ts2, js2, **CACHE_TOL)
 
 
 # -- RecurrentGemma (RG-LRU + LOCAL attention) ---------------------------------
