@@ -1,4 +1,4 @@
-"""Prove the PyTorch port runs on one NVIDIA GPU: build, check, serve.
+"""Prove the PyTorch port runs on one NVIDIA GPU: build, check, serve, train.
 
     python3 chip_smoke.py
 
@@ -43,7 +43,16 @@ each of which ends the run with a non-zero exit on failure:
    embeddings (fp32 parity at 10 layers, bf16 at its full 40); and
    HuBERT-XLarge's full encoder (48 layers, dh 80) through
    ``forward(embeddings=...)`` over 1500 frames, fp32 hidden states
-   through K3 against plain, and one timed bf16 forward.
+   through K3 against plain, and one timed bf16 forward;
+8. train: full-width Qwen2-1.5B cut to 2 layers, one ``make_grad_fn``
+   call on the card against the CPU at fp32 (loss, every gradient leaf,
+   then ``apply_updates``); all 28 layers with fp32 master weights, bf16
+   compute and remat taking six ``make_train_step`` steps of 8 x 1024
+   tokens in two microbatches (step time, tokens/s, MFU, memory peak, a
+   profiled step); and ``launch.train.build_program`` (LM100M, two
+   learners) on the thread launcher, where the chief is killed after its
+   first publish and must resume from the published version, and the
+   evaluator scores versions through K3 and agrees with its dense loss.
 
 Prints JSON lines; the one before the last is the ``{"kernels": ...}``
 record, the last ``{"ok": true, "device": {...}}``. Exits non-zero, and
@@ -532,8 +541,9 @@ def _flash_attention_record(gen, errors) -> dict:
     in bf16 — Qwen2-1.5B (12/2 heads, dh 128), RecurrentGemma-2B's LOCAL
     layers (window 2048, 10/1 heads, dh 256), Mixtral-8x7B (window 4096,
     32/8 heads, dh 128, one prompt of FAMILY_PLEN as the engine prefills
-    it) and Llama-3.2-Vision's self-attention (32/8 heads, B=2 as
-    ``generate`` batches it) — then phase 7's non-causal shapes. The
+    it), Llama-3.2-Vision's self-attention (32/8 heads, B=2 as
+    ``generate`` batches it) and phase 8's evaluator (LM100M: 12/4 heads,
+    dh 64, one 8 x 64-token batch) — then phase 7's non-causal shapes. The
     record's numbers are RecurrentGemma's; the others stand under
     ``other_shapes``."""
     import torch.nn.functional as F
@@ -567,6 +577,7 @@ def _flash_attention_record(gen, errors) -> dict:
             "mixtral-8x7b prefill": (1, FAMILY_PLEN, 32, 8, 128, 4096),
             "llama-3.2-vision-11b self prefill": (2, FAMILY_PLEN, 32, 8, 128,
                                                   None),
+            "lm100m evaluator": (8, 64, 12, 4, 64, None),
     }.items():
         (q, k, v), out, expect = _flash_case(gen, B, S, S, H, KV, dh, True,
                                              window, torch.bfloat16)
@@ -577,7 +588,8 @@ def _flash_attention_record(gen, errors) -> dict:
         dropped = ok.clone()
         dropped[:, S // 2:S // 2 + 64] = False
         margin = _rejects(name, ref.masked_attention(q, k, v, dropped),
-                          expect, errors, "one 64-key tile dropped")
+                          expect, errors,
+                          f"keys {S // 2}-{min(S, S // 2 + 64) - 1} dropped")
         pairs = int(ok.sum())
         flops = 4 * B * H * pairs * dh                # q.k and p.v FMAs
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
@@ -1730,6 +1742,378 @@ def phase_families(device_line: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 8. train: Qwen2-1.5B train steps at full width, and the training program
+# ---------------------------------------------------------------------------
+
+# a) device against CPU: full width, depth cut to 2 layers, fp32, TF32 off.
+# The loss and gradients differ by summation order only. A gradient leaf
+# whose true value is zero (the key bias: a softmax is blind to a shift
+# that moves every logit of a row alike) holds rounding residues on both
+# devices, so its bound adds 1e-7 of the whole gradient's norm. The AdamW
+# update is the same fp32 elementwise arithmetic on both devices (true
+# divisions, IEEE sqrt); only the global norm's summation order differs.
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 2, 128
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_FLOOR = 1e-5, 1e-4, 1e-7
+TRAIN_UPDATE_RTOL = 1e-6
+# b) the slice's path: all 28 layers, fp32 master weights, bf16 compute,
+# remat, two microbatches of 4 x 1024 tokens, launch/train.py's optimizer.
+TRAIN_B, TRAIN_S, TRAIN_MICRO, TRAIN_STEPS = 8, 1024, 2, 6
+# The first bf16 loss against an fp32 no_grad loss on the same weights
+# and batch: bf16 rounds each layer's activations to 8 bits of mantissa.
+TRAIN_BF16_LOSS_RTOL = 2e-2
+# c) the training program: LM100M, 2 learners, chief killed after its
+# first publish. The evaluator's loss through K3 (bf16, P rounded to bf16
+# before the value product, as the dense path rounds it) against its
+# dense loss on the last version: near ln 32768 = 10.4, two bf16 paths
+# that differ in summation order.
+PROGRAM_STEPS, PROGRAM_PUBLISH_EVERY = 20, 5
+EVAL_ABS_TOL = 1e-2
+
+
+def _tree_rel(got, want, rtol, floor=0.0, total=None):
+    """Per-leaf check: ||got - want|| <= rtol ||want|| + floor * total,
+    and the worst ratio of error to ||want||. Leaves in tree order."""
+    from repro_torch.train import tree
+    worst, floored = 0.0, 0
+    for (path, a), b in zip(tree.leaves_with_path(got), tree.leaves(want)):
+        a, b = a.double().cpu(), b.double().cpu()
+        err, ref = float((a - b).norm()), float(b.norm())
+        bound = rtol * ref + floor * (total or 0.0)
+        if err > bound:
+            fail(f"train: leaf {'/'.join(map(str, path))} off by {err:.3e} "
+                 f"(bound {bound:.3e}, norm {ref:.3e})")
+        if err > rtol * ref:
+            floored += 1
+        elif ref:
+            worst = max(worst, err / ref)
+    return worst, floored
+
+
+def _train_check(device_line: str) -> None:
+    """a) one ``make_grad_fn`` call on the card and on the CPU from the
+    same fp32 weights and batch, then ``apply_updates`` on the same
+    gradients on both."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import tree
+    from repro_torch.train.train_step import TrainConfig, make_grad_fn
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
+                              num_layers=TRAIN_CHECK_LAYERS,
+                              compute_dtype="float32")
+    cpu = transformer.init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    gpu = tree.tree_map(lambda t: t.cuda(), cpu)
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_CHECK_B, TRAIN_CHECK_S)).astype(np.int32))
+    grad_fn = make_grad_fn(cfg, TrainConfig())
+    t0 = time.perf_counter()
+    loss_c, _, g_c = grad_fn(cpu, {"tokens": toks, "labels": toks})
+    cpu_s = time.perf_counter() - t0
+    tg = toks.cuda()
+    grad_fn(gpu, {"tokens": tg, "labels": tg})           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_g, _, g_g = grad_fn(gpu, {"tokens": tg, "labels": tg})
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    if loss_err > TRAIN_LOSS_RTOL:
+        fail(f"train: card loss {float(loss_g)} vs CPU {float(loss_c)}")
+    total = float(opt_lib.global_norm(g_c))
+    worst, floored = _tree_rel(g_g, g_c, TRAIN_GRAD_RTOL, TRAIN_GRAD_FLOOR,
+                               total)
+    ocfg = opt_lib.OptimizerConfig(lr=1e-3, warmup_steps=20, total_steps=6)
+    p_c, s_c, m_c = opt_lib.apply_updates(ocfg, cpu, g_c,
+                                          opt_lib.init_opt_state(cpu))
+    p_g, s_g, m_g = opt_lib.apply_updates(
+        ocfg, gpu, tree.tree_map(lambda t: t.cuda(), g_c),
+        opt_lib.init_opt_state(gpu))
+    upd = {}
+    for name, a, b in (("params", p_g, p_c), ("m", s_g["m"], s_c["m"]),
+                       ("v", s_g["v"], s_c["v"])):
+        upd[name], _ = _tree_rel(a, b, TRAIN_UPDATE_RTOL)
+    if float(m_g["lr"]) != float(m_c["lr"]):
+        fail(f"train: lr {float(m_g['lr'])} vs {float(m_c['lr'])}")
+    emit({"phase": "train", "run": "device vs CPU", "config": "qwen2-1.5b "
+          f"full width, {TRAIN_CHECK_LAYERS} layers, fp32, TF32 off, "
+          f"B {TRAIN_CHECK_B}, S {TRAIN_CHECK_S}, seeded random weights",
+          "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+          "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
+          "grad_worst_rel_l2": worst, "grad_rtol": TRAIN_GRAD_RTOL,
+          "grad_leaves_within_floor": floored,
+          "grad_floor_of_total_norm": TRAIN_GRAD_FLOOR,
+          "update_worst_rel_l2": upd, "update_rtol": TRAIN_UPDATE_RTOL,
+          "grad_fn_s_card": gpu_s, "grad_fn_s_cpu": cpu_s,
+          "device": device_line})
+    del cpu, gpu, g_c, g_g, p_c, p_g, s_c, s_g
+    _collect()
+
+
+def _model_flops(cfg, B: int, S: int) -> tuple[float, float]:
+    """(model FLOPs of one step, FLOPs it executes): 6 N T for the
+    products, plus q.k and p.v over the full S x S square (the dense path
+    computes it) three times; remat adds a second forward of both."""
+    n = cfg.param_count()
+    attn_fwd = 2 * 2 * B * S * S * cfg.num_heads * cfg.head_dim \
+        * cfg.num_layers
+    model = 6 * n * B * S + 3 * attn_fwd
+    return model, model + 2 * n * B * S + attn_fwd
+
+
+def _train_steps(device_line: str) -> None:
+    """b) full-width Qwen2-1.5B: six ``make_train_step`` steps."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.models import transformer
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import (TrainConfig, make_train_state,
+                                              make_train_step, to_device)
+    import dataclasses
+    cfg = configs.get("qwen2-1.5b")
+    tc = TrainConfig(optimizer=OptimizerConfig(lr=1e-3, warmup_steps=20,
+                                               total_steps=TRAIN_STEPS),
+                     num_microbatches=TRAIN_MICRO, remat="full")
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = make_train_state(cfg, 0, device="cuda")
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    src = iter(make_source(DataConfig(seq_len=TRAIN_S, batch_size=TRAIN_B,
+                                      vocab_size=cfg.vocab_size)))
+    batches = [to_device(next(src), "cuda") for _ in range(TRAIN_STEPS)]
+    with torch.no_grad():
+        ref_loss, _ = transformer.loss_fn(
+            dataclasses.replace(cfg, compute_dtype="float32"), params,
+            batches[0], impl="dense")
+    ref_loss = float(ref_loss)
+    _collect()
+    probe = params["blocks"][0]["0"]["attn"]["wq"]["kernel"][:8].clone()
+    step = make_train_step(cfg, tc)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        fail(f"train: a loss is not finite: {losses}")
+    if int(opt["step"]) != TRAIN_STEPS:
+        fail(f"train: opt step {int(opt['step'])} after {TRAIN_STEPS} steps")
+    moved = float((params["blocks"][0]["0"]["attn"]["wq"]["kernel"][:8]
+                   - probe).abs().max())
+    if not moved > 0:
+        fail("train: the weights did not move")
+    first_err = abs(losses[0] - ref_loss) / ref_loss
+    if first_err > TRAIN_BF16_LOSS_RTOL:
+        fail(f"train: first bf16 loss {losses[0]} vs fp32 {ref_loss}")
+    step_s = float(np.median(times[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    model_flops, executed = _model_flops(cfg, TRAIN_B, TRAIN_S)
+    busy = batches[-1]
+    dev = _device_ms(lambda: step(params, opt, busy), iters=1, every=True)
+    dev_total = sum(dev.values())
+    emit({"phase": "train", "run": "qwen2-1.5b train steps", "config":
+          f"qwen2-1.5b full width, {cfg.num_layers} layers, fp32 master "
+          f"weights ({cfg.param_count() / 1e9:.3f} B), bf16 compute, "
+          "remat full, "
+          f"B {TRAIN_B} x S {TRAIN_S} in {TRAIN_MICRO} microbatches, "
+          "SyntheticLM, AdamW lr 1e-3 warmup 20, seeded random weights",
+          "losses": losses, "fp32_nograd_loss": ref_loss,
+          "first_loss_rel_err": first_err,
+          "first_loss_rtol": TRAIN_BF16_LOSS_RTOL,
+          "opt_step": int(opt["step"]), "weights_moved_max_abs": moved,
+          "step_s_runs": times, "step_s_median_2_to_6": step_s,
+          "tokens_per_s": tokens / step_s,
+          "model_tflop_per_step": model_flops / 1e12,
+          "executed_tflop_per_step": executed / 1e12,
+          "mfu_of_989_tflops": model_flops / step_s / 989e12,
+          "state_gb": state_gb, "cuda_peak_gb": peak_gb,
+          "profiled_step_device_ms": dev_total,
+          "profiled_step_busy_share": dev_total / 1e3 / step_s,
+          "profiled_step_top_device_ms": dict(sorted(
+              dev.items(), key=lambda kv: -kv[1])[:10]),
+          "device": device_line})
+    del params, opt, batches, busy, m
+    _collect()
+
+
+_TRAIN_CHAOS: dict = {}
+
+
+def _chaos_after_publish():
+    """A ``ChaosNode`` whose kill fires once the target has published a
+    version (its registry load names one), recording the target's step
+    then; it then watches the respawned chief's start step."""
+    from repro_torch.core.nodes.base import get_current_context
+    from repro_torch.train import fabric
+
+    class ChaosAfterPublish(fabric.ChaosNode):
+        def __init__(self, registry, schedule):
+            super().__init__(registry, schedule)
+            self._registry = registry
+
+        @staticmethod
+        def _after_live(registry, name, delay_s):
+            def pred() -> bool:
+                try:
+                    live = registry.lookup()["replicas"]
+                except Exception:  # noqa: BLE001 - registry not up yet
+                    return False
+                for r in live:
+                    if r["name"] == name and r["load"].get("version"):
+                        _TRAIN_CHAOS["kill_step"] = r["load"]["step"]
+                        _TRAIN_CHAOS["kill_version"] = r["load"]["version"]
+                        return True
+                return False
+            return pred
+
+        def run(self) -> None:
+            super().run()
+            ctx = get_current_context()
+            while not ctx.should_stop:
+                try:
+                    for r in self._registry.lookup()["replicas"]:
+                        load = r["load"]
+                        if r["name"] == "learner-0" and load.get(
+                                "start_step"):
+                            _TRAIN_CHAOS["restored_start"] = \
+                                load["start_step"]
+                except Exception:  # noqa: BLE001 - registry stopping
+                    pass
+                ctx.wait_for_stop(0.05)
+
+    return ChaosAfterPublish
+
+
+def _train_program(device_line: str) -> dict:
+    """c) ``launch.train.build_program`` on the thread launcher: LM100M,
+    2 learners, the chief killed after its first publish. Returns its
+    kernel launches."""
+    from repro_torch import core as lp
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch import train as lt
+    from repro_torch.models import convert, transformer
+    from repro_torch.train import fabric, grad_compression
+    cfg = lt.LM100M
+    version_bytes = 4 * 4 * cfg.param_count()       # params, m, v, ef
+    store = _store_dir(int(5 * version_bytes))
+    timings = {"publish_s": [], "restore_s": []}
+    methods = set()
+    publish, restore, compress = (checkpoint.ModelStore.publish_version,
+                                  fabric.restore_elastic,
+                                  grad_compression.compress_tree)
+    chaos = lt.ChaosNode
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                timings[key].append(time.perf_counter() - t0)
+        return wrapper
+
+    def compress_logged(grads, error_state=None, method="int8_ef"):
+        methods.add(method)
+        return compress(grads, error_state, method)
+
+    _TRAIN_CHAOS.clear()
+    checkpoint.ModelStore.publish_version = timed(publish, "publish_s")
+    fabric.restore_elastic = timed(restore, "restore_s")
+    grad_compression.compress_tree = compress_logged
+    lt.ChaosNode = _chaos_after_publish()
+    try:
+        program = lt.build_program(
+            cfg, steps=PROGRAM_STEPS, ckpt_dir=store, learners=2,
+            publish_every=PROGRAM_PUBLISH_EVERY, kill_after=0.0,
+            registry_ttl_s=3.0, device="cuda")
+        tee = _Tee(sys.stdout)
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            lp.launch_and_wait(program, timeout_s=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        run = _read_launches()
+    finally:
+        checkpoint.ModelStore.publish_version = publish
+        fabric.restore_elastic = restore
+        grad_compression.compress_tree = compress
+        lt.ChaosNode = chaos
+    del program
+    _collect()
+    try:
+        ms = checkpoint.ModelStore(store)
+        last = ms.latest_version()
+        if last != PROGRAM_STEPS:
+            fail(f"train program: last version {last}, not {PROGRAM_STEPS}")
+        evals = re.findall(r"eval v(\d+) loss: ([0-9.]+)", tee.text())
+        if not evals:
+            fail("train program: the evaluator scored no version")
+        if not run["flash_attention"]:
+            fail("train program: the evaluator launched no K3")
+        if "kill_step" not in _TRAIN_CHAOS:
+            fail("train program: the chief was never killed")
+        restored = _TRAIN_CHAOS.get("restored_start")
+        lost = _TRAIN_CHAOS["kill_step"] - (restored or 0)
+        if not restored or lost > PROGRAM_PUBLISH_EVERY:
+            fail(f"train program: chief killed at step "
+                 f"{_TRAIN_CHAOS['kill_step']} restored from {restored}")
+        like = convert.params_to_numpy(cfg, transformer.init_params(
+            cfg, 0, device="cpu", dtype=cfg.param_dtype))
+        params = convert.params_from_numpy(
+            cfg, ms.load_version(last, like={"params": like})["params"],
+            "cuda")
+        data_cfg = DataConfig(seq_len=64, batch_size=8,
+                              vocab_size=cfg.vocab_size, seed=999)
+        batch = next(iter(make_source(data_cfg)))
+        ev = lt.Evaluator(store, cfg, data_cfg, device="cuda")
+        k3, dense = ev.score(params, batch), ev.score(params, batch,
+                                                      impl="dense")
+        if abs(k3 - dense) > EVAL_ABS_TOL:
+            fail(f"train program: evaluator loss through K3 {k3} vs dense "
+                 f"{dense}")
+        store_gb = sum(f.stat().st_size for f in Path(store).rglob("*")
+                       if f.is_file()) / 1e9
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "train", "run": "training program", "config":
+          f"lm100m ({cfg.param_count() / 1e6:.1f} M, bf16 compute, fp32 "
+          f"master weights), 2 learners, {PROGRAM_STEPS} steps of 16 x 64 "
+          f"tokens, publish every {PROGRAM_PUBLISH_EVERY}, chief killed "
+          "after its first publish, registry TTL 3 s",
+          "wall_s": wall, "steps_per_s_wall": PROGRAM_STEPS / wall,
+          "last_version": last, "kill_step": _TRAIN_CHAOS["kill_step"],
+          "restored_from": restored, "steps_lost": lost,
+          "publish_s": timings["publish_s"],
+          "restore_s": timings["restore_s"],
+          "version_gb": version_bytes / 1e9, "store_gb_at_end": store_gb,
+          "wire_strategies": sorted(methods),
+          "evals": [[int(v), float(x)] for v, x in evals],
+          "last_version_loss_k3": k3, "last_version_loss_dense": dense,
+          "eval_abs_tol": EVAL_ABS_TOL, "launches": run,
+          "device": device_line})
+    del params
+    _collect()
+    return run
+
+
+def phase_train(device_line: str) -> dict:
+    """Returns the training program's launches, by path name."""
+    _train_check(device_line)
+    _train_steps(device_line)
+    return {"train program lm100m": _train_program(device_line)}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1744,13 +2128,15 @@ def main(argv=None) -> int:
     env = phase_environment()
     phase_build()
     records = phase_kernels()
-    # Launches on the main path: the engine runs of phases 4-7, each
-    # path's counters reset just before its run and read just after.
-    # ``launches`` is their sum; ``launches_by_path`` splits it.
+    # Launches on the main path: the engine runs of phases 4-7 and the
+    # training program of phase 8, each path's counters reset just before
+    # its run and read just after. ``launches`` is their sum;
+    # ``launches_by_path`` splits it.
     paths = {**phase_parity(env["nvidia_smi"]),
              **phase_serve(env["nvidia_smi"]),
              **phase_fabric(env["nvidia_smi"]),
-             **phase_families(env["nvidia_smi"])}
+             **phase_families(env["nvidia_smi"]),
+             **phase_train(env["nvidia_smi"])}
     for r in records:
         r["launches_by_path"] = {path: run[r["name"]]
                                  for path, run in paths.items()}

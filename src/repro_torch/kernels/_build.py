@@ -144,12 +144,15 @@ def launch_config(fn, keys: tuple, *args) -> dict:
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels have no backward yet (training is ROADMAP.md Q6): an
-    output built by them would carry no gradient, so raise instead."""
+    """The kernels have no backward pass, as the JAX package's Pallas
+    kernels have none (its training runs XLA's attention and scans): an
+    output built by them would carry no gradient, so raise instead.
+    Training runs the plain route, ``impl="dense"``."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name} has no backward pass yet (ROADMAP.md Q6); call it "
-            "under torch.no_grad() or on inputs that need no gradient")
+            f"{name} has no backward pass (nor has the JAX package's "
+            "kernel); train with impl=\"dense\", or call it under "
+            "torch.no_grad() or on inputs that need no gradient")
 
 
 def load() -> ctypes.CDLL:

@@ -5,7 +5,7 @@ The wrapper checks device, dtype, shape, contiguity and alignment,
 allocates the output with ``torch.empty``, launches on the current stream
 and counts the launch. A tensor on the CPU goes to the plain version in
 ``ref.py``; a CUDA tensor launches the kernel or raises — there is no
-fallback. The kernel has no backward pass yet, so a call that needs a
+fallback. The kernel has no backward pass, so a call that needs a
 gradient raises on every device.
 
 The kernels replace the Pallas ``_flash_kernel`` of

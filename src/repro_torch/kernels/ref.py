@@ -147,11 +147,16 @@ def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     folds halves pairwise (``_halving_sum``), as the kernel does, so the
     two can agree bit for bit. exp(Δ⊗A) and Δu⊗B are formed a chunk of
     steps at a time (the same elementwise products as one step at a
-    time), so the loop itself is two launches per step.
+    time), so the loop itself is two launches per step. When a gradient
+    is asked for, each step's state is a new tensor instead (autograd
+    cannot differentiate ``out=`` and in-place steps): the same products
+    and sums, so the same numbers.
     """
     uf, df = u.float(), delta.float()
     Af, Bf, Cf, Df = A.float(), B.float(), C.float(), D.float()
     Bb, S, Di = u.shape
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (u, delta, A, B, C, D, h0))
     h = h0.float()
     y = torch.empty((Bb, S, Di), dtype=torch.float32, device=u.device)
     for s0 in range(0, S, SSM_CHUNK):
@@ -159,10 +164,17 @@ def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         dA = torch.exp(df[:, s0:s1, :, None] * Af)               # [B,c,Di,N]
         dBu = (df[:, s0:s1] * uf[:, s0:s1])[..., None] \
             * Bf[:, s0:s1, None, :]
-        hs = torch.empty_like(dA)
-        for t in range(s1 - s0):
-            h = torch.mul(dA[:, t], h, out=hs[:, t])
-            h.add_(dBu[:, t])
+        if grad:
+            steps = []
+            for t in range(s1 - s0):
+                h = dA[:, t] * h + dBu[:, t]
+                steps.append(h)
+            hs = torch.stack(steps, dim=1)
+        else:
+            hs = torch.empty_like(dA)
+            for t in range(s1 - s0):
+                h = torch.mul(dA[:, t], h, out=hs[:, t])
+                h.add_(dBu[:, t])
         y[:, s0:s1] = (_halving_sum(hs * Cf[:, s0:s1, None, :])
                        + Df * uf[:, s0:s1])
     return y.to(u.dtype), h.clone(memory_format=torch.contiguous_format)

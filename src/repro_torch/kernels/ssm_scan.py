@@ -4,7 +4,7 @@ The wrapper checks device, dtype, shape and contiguity, allocates y and
 h_last with ``torch.empty``, launches on the current stream and counts
 the launch. A tensor on the CPU goes to the plain version in ``ref.py``;
 a CUDA tensor launches the kernel or raises — there is no fallback. The
-kernel has no backward pass yet, so a call that needs a gradient raises.
+kernel has no backward pass, so a call that needs a gradient raises.
 
 The kernel replaces the Pallas ``_ssm_kernel`` of
 ``repro/kernels/ssm_scan.py``; unlike it, any S and Di are taken. The

@@ -91,3 +91,43 @@ def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
                          f"{len(params.get('blocks', []))}")
     return {key: _export(sub if key == "blocks" else [sub], key == "blocks")
             for key, sub in params.items()}
+
+
+def train_state_to_numpy(cfg: ModelConfig, state: dict) -> dict:
+    """A training state ``{"params", "opt": {"m", "v", "step"}, "ef"}``
+    (any of the three) as the JAX package's tree: every parameter-shaped
+    tree through :func:`params_to_numpy`, ``step`` an int32 scalar. This
+    is what a learner publishes to the ``ModelStore``."""
+    out: dict[str, Any] = {}
+    for key in ("params", "ef"):
+        if key in state:
+            out[key] = params_to_numpy(cfg, state[key])
+    if "opt" in state:
+        opt = state["opt"]
+        out["opt"] = {"m": params_to_numpy(cfg, opt["m"]),
+                      "v": params_to_numpy(cfg, opt["v"]),
+                      "step": np.asarray(int(opt["step"]), np.int32)}
+    return out
+
+
+def train_state_from_numpy(cfg: ModelConfig, tree: dict,
+                           device="cuda") -> dict:
+    """Inverse of :func:`train_state_to_numpy`: parameters and moments in
+    ``cfg.param_dtype`` (the master weights), the error-feedback residual
+    in fp32, on ``device``; ``step`` a CPU int32 scalar."""
+    param_dt = layers.to_dtype(cfg.param_dtype)
+    out: dict[str, Any] = {}
+    if "params" in tree:
+        out["params"] = params_from_numpy(cfg, tree["params"], device,
+                                          param_dt)
+    if "opt" in tree:
+        opt = tree["opt"]
+        out["opt"] = {
+            "m": params_from_numpy(cfg, opt["m"], device, param_dt),
+            "v": params_from_numpy(cfg, opt["v"], device, param_dt),
+            "step": torch.tensor(int(np.asarray(opt["step"])),
+                                 dtype=torch.int32)}
+    if "ef" in tree:
+        out["ef"] = params_from_numpy(cfg, tree["ef"], device,
+                                      torch.float32)
+    return out

@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention, layers, moe, rglru, ssm
 from repro_torch.models.config import (ATTN, LOCAL, MAMBA, RGLRU, SWA, XATTN,
@@ -158,38 +159,72 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
+def _apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor, memory: Optional[torch.Tensor],
+                 impl: str) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block over the full sequence: (x, the MoE's aux loss or None)."""
+    h = layers.apply_norm(cfg, p["norm"], x)
+    if kind == RGLRU:
+        h, _ = rglru.apply_rglru_block(cfg, p["rglru"], h, impl=impl)
+    elif kind == MAMBA:
+        h, _ = ssm.apply_mamba_block(cfg, p["mamba"], h, impl=impl)
+    elif kind == XATTN:
+        h = attention.cross_attention(cfg, p["attn"], h, memory, impl=impl)
+    else:
+        h = attention.self_attention(cfg, p["attn"], h, positions, kind,
+                                     impl=impl)
+    return _mlp_half(cfg, kind, p, x + h)
+
+
+def _apply_superblock(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      positions: torch.Tensor,
+                      memory: Optional[torch.Tensor], impl: str):
+    """``cfg.pattern`` once: (x, the sum of its aux losses, fp32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, kind in enumerate(cfg.pattern):
+        x, a = _apply_block(cfg, kind, p[str(i)], x, positions, memory, impl)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def forward(cfg: ModelConfig, params: dict, *,
             tokens: Optional[torch.Tensor] = None,
             embeddings: Optional[torch.Tensor] = None,
             memory: Optional[torch.Tensor] = None,
+            remat: bool = False,
             impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over ``tokens`` [B,S] or frame
     ``embeddings`` [B,S,D] (audio), with frontend ``memory`` [B,T,D] for
     cross-attention blocks. Returns (hidden [B,S,D], aux_loss: the sum of
     the MoE layers' load-balance losses, fp32, 0 without experts).
-    ``impl`` picks the attention and scan route (see ``prefill``)."""
+    ``impl`` picks the attention and scan route (see ``prefill``).
+
+    ``remat=True`` recomputes each superblock in the backward pass
+    instead of keeping its activations (``torch.utils.checkpoint``; the
+    JAX package's ``jax.checkpoint`` with ``nothing_saveable``): only the
+    residual stream between superblocks is saved. The ``tail`` blocks are
+    not recomputed, as in the JAX package. Nothing in a block draws
+    random numbers, so no RNG state is kept for the recomputation."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens, embeddings)
     memory = _memory(cfg, memory, x)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for group, r, i, kind in _layers(cfg):
-        p = _block_params(params, group, r, i)
-        h = layers.apply_norm(cfg, p["norm"], x)
-        if kind == RGLRU:
-            h, _ = rglru.apply_rglru_block(cfg, p["rglru"], h, impl=impl)
-        elif kind == MAMBA:
-            h, _ = ssm.apply_mamba_block(cfg, p["mamba"], h, impl=impl)
-        elif kind == XATTN:
-            h = attention.cross_attention(cfg, p["attn"], h, memory,
-                                          impl=impl)
+    for blk in params.get("blocks", []):
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _apply_superblock, cfg, blk, x, positions, memory, impl,
+                use_reentrant=False, preserve_rng_state=False)
         else:
-            h = attention.self_attention(cfg, p["attn"], h, positions, kind,
-                                         impl=impl)
-        x, aux = _mlp_half(cfg, kind, p, x + h)
-        if aux is not None:
-            aux_total = aux_total + aux
+            x, a = _apply_superblock(cfg, blk, x, positions, memory, impl)
+        aux_total = aux_total + a
+    for i, kind in enumerate(cfg.remainder):
+        x, a = _apply_block(cfg, kind, params["tail"][str(i)], x, positions,
+                            memory, impl)
+        if a is not None:
+            aux_total = aux_total + a
     x = layers.apply_norm(cfg, params["final_norm"], x)
     return x, aux_total
 
@@ -197,6 +232,54 @@ def forward(cfg: ModelConfig, params: dict, *,
 def logits_from_hidden(cfg: ModelConfig, params: dict,
                        x: torch.Tensor) -> torch.Tensor:
     return layers.lm_logits(cfg, params["embed"], x)
+
+
+def cross_entropy(cfg: ModelConfig, logits: torch.Tensor,
+                  labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token NLL in fp32 (over ``mask``'s ones where given).
+
+    The true logit is gathered by index. The JAX package contracts the
+    logits with a one-hot of the labels, whose every other term is an
+    exact zero, so the number is the same; the one-hot would be a
+    [B, S, V] tensor (2.5 GB at Qwen2's vocabulary of 151936 for a
+    4 x 1024 microbatch)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - true_logit
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            remat: bool = False, impl: str = "auto"
+            ) -> tuple[torch.Tensor, dict]:
+    """Language-model / masked-prediction loss over one (micro)batch of
+    tensors: ``tokens`` and ``labels`` (causal: the next token within
+    the sequence, optionally under ``mask``), or HuBERT's frame
+    ``embeddings`` with per-frame ``targets`` at ``mask``; plus
+    ``image_embeds`` for cross-attention stacks. The MoE aux loss is
+    added. ``impl`` reaches ``forward``: training passes "dense", since
+    the kernels have no backward pass."""
+    hidden, aux = forward(
+        cfg, params,
+        tokens=batch.get("tokens"),
+        embeddings=batch.get("embeddings"),
+        memory=batch.get("image_embeds"),
+        remat=remat, impl=impl)
+    logits = logits_from_hidden(cfg, params, hidden)
+    mask = batch.get("mask")
+    if cfg.causal and "targets" not in batch:
+        # Next-token prediction: shift within the provided sequence.
+        ce = cross_entropy(cfg, logits[:, :-1], batch["labels"][:, 1:],
+                           mask[:, 1:] if mask is not None else None)
+    else:
+        # Encoder (HuBERT): predict per-position targets at masked frames.
+        ce = cross_entropy(cfg, logits, batch["targets"], mask)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: dict, *,

@@ -1,11 +1,12 @@
 """The port's framework-free modules are copies of the JAX package's.
 
 After the rename ``repro.`` -> ``repro_torch.``, every file under
-``src/repro_torch/core/`` and the serve fabric's ``router.py`` and
-``rollout.py`` must equal its twin under ``src/repro/`` — except the core
-files that carry the port's three edits (lazy ``grpc``/``cloudpickle``
-imports, tensor serialization, ``MeshWorkerNode``'s torch device). The
-trees are read as text; neither package is imported.
+``src/repro_torch/core/``, the serve fabric's ``router.py`` and
+``rollout.py`` and the data pipeline must equal its twin under
+``src/repro/`` — except the core files that carry the port's three
+edits (lazy ``grpc``/``cloudpickle`` imports, tensor serialization,
+``MeshWorkerNode``'s torch device). The trees are read as text; neither
+package is imported.
 """
 
 import os
@@ -39,7 +40,7 @@ def _read(path):
 
 CORE = _py_files(os.path.join(REF, "core"))
 COPIES = ([f"core/{f}" for f in CORE if f not in EDITED]
-          + ["serve/router.py", "serve/rollout.py"])
+          + ["serve/router.py", "serve/rollout.py", "data/pipeline.py"])
 
 
 def test_core_file_sets_match():

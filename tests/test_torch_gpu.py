@@ -459,3 +459,57 @@ def test_cuda_engine_server_load_version_swaps_and_serves(cuda, tmp_path):
         want = np.asarray(eng.submit(prompt).result(timeout=120))
     np.testing.assert_array_equal(out1, want)
     assert not np.array_equal(out0, out1)
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_matches_cpu(cuda):
+    """Microbatched gradients of the reduced Qwen2 at fp32 (TF32 off) on
+    the card and on the CPU from the same weights and batch: the loss
+    within 1e-5 relative, each gradient leaf within 1e-4 relative L2
+    (plus 1e-7 of the whole gradient's norm for a leaf whose true
+    gradient is zero, as chip_smoke's phase 8). The AdamW update of the
+    same gradients agrees within 1e-6 relative L2 on both devices; it is
+    compared on one set of gradients because AdamW's first step is
+    sign(g) elementwise, which turns a zero gradient's rounding residue
+    into a full-size step. Then one ``make_train_step`` on the card."""
+    import dataclasses
+
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import tree
+    from repro_torch.train.train_step import (TrainConfig, make_grad_fn,
+                                              make_train_step)
+    cfg = dataclasses.replace(configs.get_reduced("qwen2-1.5b"),
+                              compute_dtype="float32")
+    tc = TrainConfig(optimizer=opt_lib.OptimizerConfig(
+        lr=1e-3, warmup_steps=2, total_steps=10), num_microbatches=2)
+    cpu = transformer.init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    gpu = tree.tree_map(lambda t: t.to(cuda), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32))
+    on = {"cpu": {"tokens": toks, "labels": toks},
+          "gpu": {"tokens": toks.to(cuda), "labels": toks.to(cuda)}}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lc, _, gc = make_grad_fn(cfg, tc)(cpu, on["cpu"])
+        lg, _, gg = make_grad_fn(cfg, tc)(gpu, on["gpu"])
+        pc, sc, _ = opt_lib.apply_updates(tc.optimizer, cpu, gc,
+                                          opt_lib.init_opt_state(cpu))
+        pg, sg, _ = opt_lib.apply_updates(
+            tc.optimizer, gpu, tree.tree_map(lambda t: t.to(cuda), gc),
+            opt_lib.init_opt_state(gpu))
+        p2, s2, m2 = make_train_step(cfg, tc)(
+            gpu, opt_lib.init_opt_state(gpu), on["gpu"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    total = float(opt_lib.global_norm(gc))
+    for a, b in zip(tree.leaves(gg), tree.leaves(gc)):
+        err = float((a.cpu().double() - b.double()).norm())
+        assert err <= 1e-4 * float(b.double().norm()) + 1e-7 * total
+    for a, b in zip(tree.leaves((pg, sg["m"], sg["v"])),
+                    tree.leaves((pc, sc["m"], sc["v"]))):
+        err = float((a.cpu().double() - b.double()).norm())
+        assert err <= 1e-6 * float(b.double().norm())
+    assert bool(torch.isfinite(m2["loss"])) and int(s2["step"]) == 1
+    assert all(leaf.device.type == "cuda" for leaf in tree.leaves(p2))
