@@ -52,7 +52,17 @@ each of which ends the run with a non-zero exit on failure:
    profiled step); and ``launch.train.build_program`` (LM100M, two
    learners) on the thread launcher, where the chief is killed after its
    first publish and must resume from the published version, and the
-   evaluator scores versions through K3 and agrees with its dense loss.
+   evaluator scores versions through K3 and agrees with its dense loss;
+9. plan: the dry run (``launch.dryrun``) at full config and full shape on
+   the 16x16 planning mesh of H100s for the three cells the JAX
+   package's own test compiles (qwen2-1.5b train_4k, mixtral-8x7b
+   decode_32k, falcon-mamba-7b long_500k), and qwen2-1.5b train_4k on the
+   2x16x16 mesh: none may fail; then the estimate against the card on the
+   1x1 CUDA mesh: phase 8's train step and a bf16 prefill through K3,
+   each traced fake and then run for real with DTensor parameters under
+   ``use_sharding``. The counted FLOPs must agree within 1%, the peaks
+   within a factor of 2, and the sharded train step's loss must equal
+   the unsharded step's.
 
 Prints JSON lines; the one before the last is the ``{"kernels": ...}``
 record, the last ``{"ok": true, "device": {...}}``. Exits non-zero, and
@@ -2114,6 +2124,219 @@ def phase_train(device_line: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 9. plan: the dry run, and its estimate against the card
+# ---------------------------------------------------------------------------
+
+# (arch, shape, production mesh, with the depth probe): the cells the JAX
+# package's test compiles (tests/test_distributed.py), and one on two pods.
+PLAN_CELLS = (("qwen2-1.5b", "train_4k", "single", True),
+              ("mixtral-8x7b", "decode_32k", "single", True),
+              ("falcon-mamba-7b", "long_500k", "single", True),
+              ("qwen2-1.5b", "train_4k", "multi", False))
+PLAN_FLOPS_RTOL = 1e-2          # counted FLOPs: estimate vs the card
+PLAN_PEAK_RATIO = (0.5, 2.0)    # estimated / measured peak memory
+PREFILL_S = 1536
+
+
+def _dry_run(device_line: str) -> None:
+    """a) the dry run's cells at full config and shape."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import hw
+    emit({"phase": "plan", "run": "hbm", "hw_HBM_BYTES": hw.HBM_BYTES,
+          "card_total_memory": torch.cuda.get_device_properties(0)
+          .total_memory, "device": device_line})
+    for arch, shape, mesh, probes in PLAN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, mesh, with_probes=probes)
+        rec["wall_s"] = time.perf_counter() - t0
+        print(dryrun.summary_line(mesh, rec), flush=True)
+        print(rec.pop("traceback", ""), file=sys.stderr, flush=True)
+        emit({"phase": "plan", "run": "dry run", **rec,
+              "device": device_line})
+        if rec["status"] == "error":
+            fail(f"plan: {arch} {shape} on {mesh}: {rec['error']}")
+        if rec["status"] != "ok":
+            fail(f"plan: {arch} {shape} was {rec['status']}")
+
+
+def _place(tree, mesh):
+    """Each tensor of ``tree`` as a DTensor on the 1x1 mesh, placed by
+    the rules, sharing its storage."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding.rules import param_sharding
+    from repro_torch.train import tree as tree_lib
+    return tree_lib.tree_map(
+        lambda t, sh: DTensor.from_local(t, mesh, sh[1], run_check=False)
+        if t.is_cuda else t, tree, param_sharding(tree, mesh))
+
+
+def _estimate_vs_card(label, cfg, shape, plan, mesh, run_real,
+                      device_line) -> dict:
+    """Trace the cell fake on ``mesh``, then ``run_real()`` on the card:
+    its counted FLOPs and its peak beside the estimate's."""
+    from repro_torch.launch import cells
+    from repro_torch.roofline import hw
+    t0 = time.perf_counter()
+    cell = cells.build_cell(cfg, shape, mesh, plan=plan)
+    est = cells.trace_cell(cell, mesh)
+    trace_s = time.perf_counter() - t0
+    real = run_real()
+    rel = abs(real["flops"] - est.cost.flops) / est.cost.flops
+    ratio = est.peak_bytes / real["peak_bytes"]
+    rec = {"phase": "plan", "run": f"estimate vs card: {label}",
+           "est_flops": est.cost.flops, "card_flops": real["flops"],
+           "flops_rel_err": rel, "flops_rtol": PLAN_FLOPS_RTOL,
+           "est_peak_gb": est.peak_bytes / 1e9,
+           "est_argument_gb": est.argument_bytes / 1e9,
+           "card_peak_gb": real["peak_bytes"] / 1e9,
+           "peak_ratio_est_over_card": ratio,
+           "peak_ratio_bounds": PLAN_PEAK_RATIO,
+           "est_memory_s": est.cost.bytes_accessed / hw.HBM_BW,
+           "trace_s": trace_s, **real.get("extra", {}),
+           "device": device_line}
+    emit(rec)
+    if rel > PLAN_FLOPS_RTOL:
+        fail(f"plan: {label}: card FLOPs {real['flops']} vs estimate "
+             f"{est.cost.flops}")
+    if not PLAN_PEAK_RATIO[0] <= ratio <= PLAN_PEAK_RATIO[1]:
+        fail(f"plan: {label}: estimated peak {est.peak_bytes} vs card "
+             f"{real['peak_bytes']}")
+    return rec
+
+
+def _plan_train(mesh, device_line) -> None:
+    """b-i) phase 8's train step: estimate, then the card."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch import cells
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.roofline.analysis import cost_of
+    from repro_torch.sharding import use_sharding
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import (TrainConfig, make_train_state,
+                                              make_train_step, to_device)
+    cfg = configs.get("qwen2-1.5b")
+    shape = ShapeConfig("train_8x1024", "train", TRAIN_S, TRAIN_B)
+    plan = cells.CellPlan(num_microbatches=TRAIN_MICRO, remat="full")
+    step = make_train_step(cfg, TrainConfig(
+        optimizer=OptimizerConfig(), num_microbatches=TRAIN_MICRO,
+        remat="full"))
+
+    def run_real():
+        """The sharded step timed from a clean card (its peak), then
+        counted, then the unsharded step on the same inputs."""
+        params, opt = make_train_state(cfg, 0, device="cuda")
+        src = iter(make_source(DataConfig(seq_len=TRAIN_S,
+                                          batch_size=TRAIN_B,
+                                          vocab_size=cfg.vocab_size)))
+        batch = to_device(next(src), "cuda")
+        dp, do = _place(params, mesh), _place(opt, mesh)
+        db = _place(batch, mesh)
+        ctx = cells.sharding_ctx(mesh)
+        _collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_sharding(ctx):
+            out = step(dp, do, db)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del out
+        _collect()
+        with use_sharding(ctx):
+            out, rec = cost_of(step, (dp, do, db))
+        sharded_loss = float(out[2]["loss"].full_tensor())
+        del out
+        _collect()
+        _, _, m = step(params, opt, batch)          # unsharded
+        plain_loss = float(m["loss"])
+        del m, dp, do, db, params, opt, batch
+        _collect()
+        if sharded_loss != plain_loss:
+            fail(f"plan: sharded train loss {sharded_loss} vs unsharded "
+                 f"{plain_loss}")
+        return {"flops": rec.cost.flops, "peak_bytes": peak,
+                "extra": {"loss_sharded": sharded_loss,
+                          "loss_unsharded": plain_loss,
+                          "card_first_sharded_step_s": step_s,
+                          "card_state_gb_before_step": base / 1e9}}
+
+    _estimate_vs_card(f"qwen2-1.5b train B {TRAIN_B} x S {TRAIN_S}, "
+                      f"{TRAIN_MICRO} microbatches, remat, fp32 master, "
+                      "bf16 compute", cfg, shape, plan, mesh, run_real,
+                      device_line)
+
+
+def _plan_prefill(mesh, device_line) -> dict:
+    """b-ii) a bf16 prefill through K3: estimate, then the card."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch import cells
+    from repro_torch.models import transformer
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.roofline.analysis import cost_of
+    from repro_torch.serve import decode as serve_lib
+    from repro_torch.sharding import use_sharding
+    cfg = configs.get("qwen2-1.5b")
+    shape = ShapeConfig("prefill_1536", "prefill", PREFILL_S, 1)
+    fn = serve_lib.make_prefill(cfg, context_len=PREFILL_S,
+                                impl=cells.ROUTE)
+    launched = {}
+
+    def run_real():
+        params = _place(transformer.init_params(cfg, 0, device="cuda",
+                                                dtype=torch.bfloat16), mesh)
+        rng = np.random.default_rng(9)
+        toks = _place(torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (1, PREFILL_S)).astype(np.int32)).cuda(),
+            mesh)
+        ctx = cells.sharding_ctx(mesh)
+        k3.reset_launches()
+        with use_sharding(ctx), torch.no_grad():
+            out, rec = cost_of(lambda p, t: fn(p, t), (params, toks))
+        launched["k3"] = k3.launches["flash_attention"]
+        del out
+        _collect()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_sharding(ctx), torch.no_grad():
+            out = fn(params, toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del out, params, toks
+        _collect()
+        return {"flops": rec.cost.flops, "peak_bytes": peak,
+                "extra": {"card_prefill_s": wall,
+                          "k3_launches_counted_run": launched["k3"]}}
+
+    rec = _estimate_vs_card(f"qwen2-1.5b bf16 prefill B 1 x S {PREFILL_S} "
+                            "through K3", cfg, shape, None, mesh, run_real,
+                            device_line)
+    if launched["k3"] != cfg.num_layers:
+        fail(f"plan: the prefill launched K3 {launched['k3']} times, not "
+             f"once a layer")
+    return rec
+
+
+def phase_plan(device_line: str) -> dict:
+    """Returns K3's launches in the sharded prefill, by path name."""
+    from repro_torch.launch.mesh import make_local_mesh
+    _dry_run(device_line)
+    mesh = make_local_mesh()                      # 1x1, nccl
+    _plan_train(mesh, device_line)
+    _reset_launches()
+    _plan_prefill(mesh, device_line)
+    launches = _read_launches()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return {"plan prefill (DTensor, 1x1 mesh)": launches}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2136,7 +2359,8 @@ def main(argv=None) -> int:
              **phase_serve(env["nvidia_smi"]),
              **phase_fabric(env["nvidia_smi"]),
              **phase_families(env["nvidia_smi"]),
-             **phase_train(env["nvidia_smi"])}
+             **phase_train(env["nvidia_smi"]),
+             **phase_plan(env["nvidia_smi"])}
     for r in records:
         r["launches_by_path"] = {path: run[r["name"]]
                                  for path, run in paths.items()}

@@ -143,6 +143,14 @@ def launch_config(fn, keys: tuple, *args) -> dict:
     return dict(zip(keys, out))
 
 
+def require_device(what: str, t: torch.Tensor) -> None:
+    """Only the CPU (the plain version) and CUDA (the kernel) have an
+    implementation: a tensor elsewhere raises before it reaches the
+    kernel's custom op, whose fake would otherwise answer for it."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} kernel for {t.device}")
+
+
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     """The kernels have no backward pass, as the JAX package's Pallas
     kernels have none (its training runs XLA's attention and scans): an

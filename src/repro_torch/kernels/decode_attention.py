@@ -15,6 +15,11 @@ One launch per call: the last block of each (row, KV head) combines the
 splits, counted in a per-device int32 workspace that every launch leaves
 at zero. Calls on one device therefore must not overlap on different
 streams (the serving engine issues them on one stream).
+
+Each kernel is a custom op (``repro_torch::decode_attention``,
+``repro_torch::paged_decode_attention``) with a fake and a FLOP formula,
+so a trace under ``FakeTensorMode`` or a FLOP counter sees one op. A
+DTensor runs on its local shards (rows or query/KV heads sharded).
 """
 
 from __future__ import annotations
@@ -23,8 +28,9 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _shards, ref
 
 # Launches of each kernel since the last reset: plain integers, bumped
 # where the kernel launches and nowhere else.
@@ -129,6 +135,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      sm_scale: Optional[float] = None) -> torch.Tensor:
     """q [B,H,dh]; k/v [B,L,KV,dh]; valid [B,L] bool -> [B,H,dh] (q's
     dtype). q and k/v may differ in dtype (float32 / bfloat16)."""
+    args = (q, k, v, valid, sm_scale)
+    if _shards.is_dtensor(q, k, v, valid):
+        pq = _shards.moved(q.placements, {0: 0, 1: 1})
+        pkv = _shards.moved(q.placements, {0: 0, 1: 2})
+        prow = _shards.moved(q.placements, {0: 0})
+        return _shards.on_shards(_decode_attention, args,
+                                 (pq, pkv, pkv, prow, None), pq)
+    _build.require_device("decode-attention", q)
+    return _decode_attention(*args)
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid: torch.Tensor,
+                      sm_scale: Optional[float]) -> torch.Tensor:
+    """The kernel (the plain version for a CPU tensor) as a custom op."""
     if q.device.type == "cpu":
         return ref.decode_attention(q, k, v, valid, sm_scale)
     if q.device.type != "cuda":
@@ -160,7 +182,25 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            sm_scale: Optional[float] = None) -> torch.Tensor:
     """q [B,H,dh]; k/v pages [P,ps,KV,dh]; pages [B,n] int32; valid
     [B,n*ps] bool over logical slots -> [B,H,dh] (q's dtype). Page ids
-    must lie in [0, P); repeats and the trash page 0 are legal."""
+    must lie in [0, P); repeats and the trash page 0 are legal. On
+    DTensors the rows may be sharded; the pool is read whole."""
+    args = (q, k_pages, v_pages, pages, valid, sm_scale)
+    if _shards.is_dtensor(*args[:5]):
+        prow = _shards.moved(q.placements, {0: 0})
+        pool = _shards.moved(q.placements, {})
+        return _shards.on_shards(_paged_decode_attention, args,
+                                 (prow, pool, pool, prow, prow, None), prow)
+    _build.require_device("decode-attention", q)
+    return _paged_decode_attention(*args)
+
+
+@torch.library.custom_op("repro_torch::paged_decode_attention",
+                         mutates_args=())
+def _paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, pages: torch.Tensor,
+                            valid: torch.Tensor,
+                            sm_scale: Optional[float]) -> torch.Tensor:
+    """The kernel (the plain version for a CPU tensor) as a custom op."""
     if q.device.type == "cpu":
         return ref.paged_decode_attention(q, k_pages, v_pages, pages, valid,
                                           sm_scale)
@@ -190,3 +230,30 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _build.check_rc(rc, "paged_decode_attention")
     launches["paged_decode_attention"] += 1
     return out
+
+
+@_decode_attention.register_fake
+def _(q, k, v, valid, sm_scale):
+    return torch.empty_like(q)
+
+
+@_paged_decode_attention.register_fake
+def _(q, k_pages, v_pages, pages, valid, sm_scale):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _flops(q_shape, k_shape, v_shape, valid_shape, sm_scale,
+           out_shape=None, **kwargs) -> int:
+    """q.k and p.v over every slot of the ring (which are valid is data
+    the formula does not see): 4 dh a slot and query head."""
+    B, H, dh = q_shape
+    return 4 * B * H * dh * k_shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.paged_decode_attention)
+def _paged_flops(q_shape, k_shape, v_shape, pages_shape, valid_shape,
+                 sm_scale, out_shape=None, **kwargs) -> int:
+    """As ``decode_attention``, over each row's n * ps logical slots."""
+    B, H, dh = q_shape
+    return 4 * B * H * dh * valid_shape[1]

@@ -14,15 +14,22 @@ The kernels replace the Pallas ``_flash_kernel`` of
 runs on the tensor cores (wgmma, P rounded to bf16 before the value
 product, as the dense path and SDPA round it), float32 on fp32 FMAs,
 since float32 is the parity dtype and TF32 would keep three digits.
+
+The kernel is the custom op ``repro_torch::flash_attention``, with a
+fake (its output's shape) and a FLOP formula (the visible pairs, not the
+dense square), so a trace under ``FakeTensorMode`` or a FLOP counter
+sees it as one op.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _shards, ref
 
 # Launches since the last reset: a plain integer, bumped where the kernel
 # launches and nowhere else.
@@ -75,12 +82,39 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"keys ({Sk}) leaves rows with nothing to attend")
 
 
+def visible_pairs(Sq: int, Sk: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """(query, key) pairs ``ref.visible`` keeps: the work the kernel
+    does, in place of the [Sq, Sk] square the dense path computes."""
+    p = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    hi = np.minimum(p + 1, Sk) if causal else np.full(Sq, Sk, np.int64)
+    lo = np.maximum(p - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """q [B,Sq,H,dh], k/v [B,Sk,KV,dh] -> [B,Sq,H,dh] in q's dtype;
-    queries right-aligned when Sq < Sk (see ``ref.flash_attention``)."""
+    queries right-aligned when Sq < Sk (see ``ref.flash_attention``).
+    DTensors run on their local shards: batch and heads may be sharded
+    (k/v over the same axes as q, so each shard keeps whole groups)."""
     _build.refuse_grad("flash_attention", q, k, v)
+    args = (q, k, v, causal, window, sm_scale)
+    if _shards.is_dtensor(q, k, v):
+        pl = _shards.moved(q.placements, {0: 0, 2: 2})
+        return _shards.on_shards(_flash_attention, args,
+                                 (pl, pl, pl, None, None, None), pl)
+    _build.require_device("flash-attention", q)
+    return _flash_attention(*args)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool, window: Optional[int],
+                     sm_scale: Optional[float]) -> torch.Tensor:
+    """The kernel (the plain version for a CPU tensor), as a custom op:
+    tracers see one op with the shape of its output and its FLOPs."""
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal, window, sm_scale)
     if q.device.type != "cuda":
@@ -100,3 +134,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_rc(rc, "flash_attention")
     launches["flash_attention"] += 1
     return out
+
+
+@_flash_attention.register_fake
+def _(q, k, v, causal, window, sm_scale):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, window, sm_scale,
+           out_shape=None, **kwargs) -> int:
+    """q.k and p.v over the visible pairs: 4 dh a pair and query head."""
+    B, Sq, H, dh = q_shape
+    return 4 * B * H * dh * visible_pairs(Sq, k_shape[1], causal, window)

@@ -134,7 +134,8 @@ SSM_CHUNK = 256
 
 def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
-             h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+             h0: torch.Tensor, elem_dtype: Optional[torch.dtype] = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mamba-1 selective scan, sequential over S, in fp32:
 
         h_t = exp(Δ_t ⊗ A) * h_{t-1} + (Δ_t u_t) ⊗ B_t
@@ -150,7 +151,9 @@ def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     time), so the loop itself is two launches per step. When a gradient
     is asked for, each step's state is a new tensor instead (autograd
     cannot differentiate ``out=`` and in-place steps): the same products
-    and sums, so the same numbers.
+    and sums, so the same numbers. ``elem_dtype`` rounds exp(Δ⊗A) and
+    Δu⊗B to that dtype first (``models.ssm.SCAN_DTYPE``; the kernel has
+    no such rounding).
     """
     uf, df = u.float(), delta.float()
     Af, Bf, Cf, Df = A.float(), B.float(), C.float(), D.float()
@@ -164,6 +167,8 @@ def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         dA = torch.exp(df[:, s0:s1, :, None] * Af)               # [B,c,Di,N]
         dBu = (df[:, s0:s1] * uf[:, s0:s1])[..., None] \
             * Bf[:, s0:s1, None, :]
+        if elem_dtype is not None:
+            dA, dBu = dA.to(elem_dtype).float(), dBu.to(elem_dtype).float()
         if grad:
             steps = []
             for t in range(s1 - s0):

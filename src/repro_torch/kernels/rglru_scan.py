@@ -10,13 +10,17 @@ The kernel replaces the Pallas ``_rglru_kernel`` of
 ``repro/kernels/rglru_scan.py``; unlike it, any S and W are taken.
 ``launch_config`` reports the launch a call makes (grid, threads, shared
 memory, ring depth).
+
+The kernel is the custom op ``repro_torch::rglru_scan``, with a fake and
+a FLOP formula; a DTensor runs on its local shards (rows or channels).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _shards, ref
 
 # What ``repro_rglru_scan_config`` reports, in its order.
 LAUNCH_KEYS = ("grid_x", "grid_y", "threads", "smem_bytes", "stages",
@@ -55,6 +59,25 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
     """a/x [B,S,W], h0 [B,W] fp32 -> (y [B,S,W] in x's dtype, h_last
     [B,W] fp32), h_t = a_t * h_{t-1} + x_t."""
     _build.refuse_grad("rglru_scan", a, x, h0)
+    if _shards.is_dtensor(a, x, h0):
+        return _shards.on_shards(_rglru_scan, (a, x, h0),
+                                 *shard_placements(x))
+    _build.require_device("rglru-scan", x)
+    return _rglru_scan(a, x, h0)
+
+
+def shard_placements(x) -> tuple:
+    """(input, output) placements of an RG-LRU scan over DTensor x: rows
+    and channels keep x's sharding, the sequence is whole."""
+    pl = _shards.moved(x.placements, {0: 0, 2: 2})
+    ph = _shards.moved(x.placements, {0: 0, 2: 1})
+    return (pl, pl, ph), (pl, ph)
+
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def _rglru_scan(a: torch.Tensor, x: torch.Tensor,
+                h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel (the plain version for a CPU tensor) as a custom op."""
     if x.device.type == "cpu":
         return ref.rglru_scan(a, x, h0)
     if x.device.type != "cuda":
@@ -73,6 +96,19 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
     _build.check_rc(rc, "rglru_scan")
     launches["rglru_scan"] += 1
     return y, h_last
+
+
+@_rglru_scan.register_fake
+def _(a, x, h0):
+    return (torch.empty_like(x),
+            x.new_empty((x.shape[0], x.shape[2]), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan)
+def _flops(a_shape, x_shape, h0_shape, out_shape=None, **kwargs) -> int:
+    """One multiply and one add per element."""
+    B, S, W = x_shape
+    return 2 * B * S * W
 
 
 def launch_config(dtype: torch.dtype, B: int, W: int) -> dict:

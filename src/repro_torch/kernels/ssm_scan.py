@@ -14,13 +14,17 @@ them contiguous.
 
 ``launch_config`` reports the launch a call makes (grid, threads,
 shared memory, staged chunks, lanes a channel).
+
+The kernel is the custom op ``repro_torch::ssm_scan``, with a fake and a
+FLOP formula; a DTensor runs on its local shards (rows or channels).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _shards, ref
 
 STATE_SIZES = (4, 8, 16)
 # What ``repro_ssm_scan_config`` reports, in its order.
@@ -73,6 +77,29 @@ def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     (y [B,S,Di] in u's dtype, h_last [B,Di,N] fp32); see
     ``ref.ssm_scan``."""
     _build.refuse_grad("ssm_scan", u, delta, A, B, C, D, h0)
+    args = (u, delta, A, B, C, D, h0)
+    if _shards.is_dtensor(*args):
+        return _shards.on_shards(_ssm_scan, args, *shard_placements(u))
+    _build.require_device("ssm-scan", u)
+    return _ssm_scan(*args)
+
+
+def shard_placements(u) -> tuple:
+    """(input, output) placements of a selective scan over DTensor u:
+    rows and channels keep u's sharding, the sequence and the state are
+    whole."""
+    pu = _shards.moved(u.placements, {0: 0, 2: 2})
+    pa = _shards.moved(u.placements, {2: 0})
+    pbc = _shards.moved(u.placements, {0: 0})
+    ph = _shards.moved(u.placements, {0: 0, 2: 1})
+    return (pu, pu, pa, pbc, pbc, pa, ph), (pu, ph)
+
+
+@torch.library.custom_op("repro_torch::ssm_scan", mutates_args=())
+def _ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+              h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel (the plain version for a CPU tensor) as a custom op."""
     if u.device.type == "cpu":
         return ref.ssm_scan(u, delta, A, B, C, D, h0)
     if u.device.type != "cuda":
@@ -93,6 +120,23 @@ def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     _build.check_rc(rc, "ssm_scan")
     launches["ssm_scan"] += 1
     return y, h_last
+
+
+@_ssm_scan.register_fake
+def _(u, delta, A, B, C, D, h0):
+    return (torch.empty_like(u),
+            u.new_empty((u.shape[0], u.shape[2], A.shape[1]),
+                        dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan)
+def _flops(u_shape, delta_shape, A_shape, B_shape, C_shape, D_shape,
+           h0_shape, out_shape=None, **kwargs) -> int:
+    """Per (row, step, channel, state): Δ·A and its exponential, Δu·B,
+    the state's multiply-add and C·h's multiply-add (8); per channel D·u
+    and its add (2)."""
+    Bb, S, Di = u_shape
+    return 8 * Bb * S * Di * A_shape[1] + 2 * Bb * S * Di
 
 
 def launch_config(dtype: torch.dtype, N: int, B: int, Di: int) -> dict:

@@ -18,6 +18,14 @@ dense path (the kernels have no softcap).
 Cache updates are written in place (one slot per row with an indexed
 store) where the JAX package returns a new array; the numbers are
 identical, and the functions still return the cache for symmetry.
+
+Under a sharding context (``sharding.use_sharding``) the tensors are
+DTensors and the JAX package's ``shard`` constraints place them: q/k/v
+over the batch and the (padded) heads, the cache over the batch and its
+KV heads or its length. A projection's output is gathered over TP before
+it is split into heads when the heads do not divide the TP width
+(``_split_heads``: DTensor cannot unflatten a dim sharded across head
+boundaries). Without a context each of these is a no-op.
 """
 
 from __future__ import annotations
@@ -25,13 +33,64 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels import _shards
 from repro_torch.kernels import decode_attention as flash_decode
 from repro_torch.kernels import flash_attention as flash_prefill
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import current_ctx, shard
 
 NEG_INF = -2.0 ** 30
+
+
+def _tp_size() -> int:
+    ctx = current_ctx()
+    return ctx.size("tp") if ctx is not None else 1
+
+
+def _pad_heads(x: torch.Tensor, hp: int) -> torch.Tensor:
+    """Zero-pad the head dim (axis 2) to ``hp`` heads."""
+    pad = hp - x.shape[2]
+    if pad == 0:
+        return x
+    return _shards.pad(x, (0, 0, 0, pad))
+
+
+def _repeat_heads(k: torch.Tensor, group: int) -> torch.Tensor:
+    """[B,S,KV,dh] -> [B,S,KV*group,dh], each KV head ``group`` times in
+    a row (``repeat_interleave``, written as expand + reshape)."""
+    B, S, KV, dh = k.shape
+    return k[:, :, :, None, :].expand(B, S, KV, group, dh).reshape(
+        B, S, KV * group, dh)
+
+
+def _heads_over_tp(q, k, v, keep_groups: bool):
+    """q/k/v laid out over the TP axis as the JAX package's ``_sdpa``
+    lays them out: KV heads repeated to the query heads, heads
+    zero-padded to a multiple of TP, then sharded (batch over DP, heads
+    over TP). ``keep_groups`` keeps the KV heads grouped when they split
+    evenly over TP (the kernels take GQA); the dense path always repeats
+    them. Returns (q, k, v, H)."""
+    H, KV = q.shape[2], k.shape[2]
+    tp = _tp_size()
+    if KV != H and not (keep_groups and KV % tp == 0):
+        k, v = _repeat_heads(k, H // KV), _repeat_heads(v, H // KV)
+    hp = H + ((-H) % tp)
+    if hp != H:
+        q, k, v = _pad_heads(q, hp), _pad_heads(k, hp), _pad_heads(v, hp)
+    q = shard(q, "dp", None, "tp", None)
+    k = shard(k, "dp", None, "tp", None)
+    v = shard(v, "dp", None, "tp", None)
+    return q, k, v, H
+
+
+def _split_heads(y: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """[B,S,n*dh] -> [B,S,n,dh]; under TP, gathered first unless the TP
+    width divides the heads."""
+    y = shard(y, "dp", None, "tp" if n % _tp_size() == 0 else None)
+    return y.reshape(y.shape[0], y.shape[1], n, dh)
 
 # Query-chunk size of the full-sequence path: bounds the materialized
 # [B, H, Qc, S] logits once S > 2 * Q_CHUNK.
@@ -68,14 +127,12 @@ def _headwise_rms(x: torch.Tensor, scale: torch.Tensor,
 
 def _project_qkv(cfg: ModelConfig, p: dict, xq: torch.Tensor,
                  xkv: torch.Tensor):
-    B, Sq = xq.shape[:2]
-    Skv = xkv.shape[1]
-    q = layers.apply_linear(p["wq"], xq).reshape(B, Sq, cfg.num_heads,
-                                                 cfg.head_dim)
-    k = layers.apply_linear(p["wk"], xkv).reshape(B, Skv, cfg.num_kv_heads,
-                                                  cfg.head_dim)
-    v = layers.apply_linear(p["wv"], xkv).reshape(B, Skv, cfg.num_kv_heads,
-                                                  cfg.head_dim)
+    q = _split_heads(layers.apply_linear(p["wq"], xq), cfg.num_heads,
+                     cfg.head_dim)
+    k = _split_heads(layers.apply_linear(p["wk"], xkv), cfg.num_kv_heads,
+                     cfg.head_dim)
+    v = _split_heads(layers.apply_linear(p["wv"], xkv), cfg.num_kv_heads,
+                     cfg.head_dim)
     if cfg.qk_norm:
         q = _headwise_rms(q, p["q_norm"]["scale"], cfg.norm_eps)
         k = _headwise_rms(k, p["k_norm"]["scale"], cfg.norm_eps)
@@ -110,26 +167,59 @@ def _bias(ok: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
 
+# Attention-logits dtype (hillclimb lever): fp32 is the default; bf16
+# halves the dense path's dominant HBM term at a bounded accuracy cost.
+# The flash kernels keep fp32 logits on chip whatever it says.
+LOGITS_DTYPE = "float32"
+
+
 def _sdpa(cfg: ModelConfig, q, k, v, bias) -> torch.Tensor:
     """q [B,Sq,H,dh], k/v [B,Sk,KV,dh], bias [B,1,Sq,Sk] fp32.
 
-    KV heads are expanded to the query-head count. Logits are accumulated
-    and kept in fp32 (the JAX einsum's ``preferred_element_type``);
-    softmax weights go back to q's dtype for the value product.
+    KV heads are expanded to the query-head count and the heads padded to
+    a multiple of TP (``_heads_over_tp``). Logits are formed and kept in
+    ``LOGITS_DTYPE`` (the JAX einsum's ``preferred_element_type``; fp32
+    operands for fp32 logits); softmax weights go back to q's dtype for
+    the value product. On DTensors each device computes its own rows and
+    heads (``local_map``): DTensor cannot run the batched products on a
+    batch dim merged from two sharded dims.
     """
-    B, Sq, H, dh = q.shape
-    KV = k.shape[2]
-    if KV != H:
-        k = k.repeat_interleave(H // KV, dim=2)
-        v = v.repeat_interleave(H // KV, dim=2)
-    logits = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float())
+    q, k, v, H = _heads_over_tp(q, k, v, keep_groups=False)
+    if isinstance(q, DTensor):
+        pl = _shards.moved(q.placements, {0: 0, 2: 2})
+        pb = pl if bias.dim() and bias.shape[0] == q.shape[0] > 1 else \
+            _shards.moved(q.placements, {})
+        out = _shards.on_shards(
+            lambda *a: _sdpa_local(cfg, *a), (q, k, v, bias),
+            (pl, pl, pl, pb), pl)
+    else:
+        out = _sdpa_local(cfg, q, k, v, bias)
+    return out[:, :, :H]
+
+
+def _sdpa_local(cfg: ModelConfig, q, k, v, bias) -> torch.Tensor:
+    """``_sdpa``'s products over heads already laid out one-to-one."""
+    dh = q.shape[3]
+    ldt = layers.to_dtype(LOGITS_DTYPE)
+    logits = torch.einsum("bqhd,bshd->bhqs", q.to(ldt), k.to(ldt))
     logits = logits * (dh ** -0.5)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
-    logits = logits + bias
+    logits = logits + bias.to(ldt)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqs,bshd->bqhd", w, v)
+
+
+def _flash_prefill(q, k, v, causal: bool,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """The prefill kernel over the heads as ``_heads_over_tp`` lays them
+    out (KV heads kept grouped where they split over TP)."""
+    q, k, v, H = _heads_over_tp(q, k, v, keep_groups=True)
+    out = flash_prefill.flash_attention(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=causal,
+                                        window=window)
+    return out[:, :, :H]
 
 
 def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -149,9 +239,7 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q, k = _rope(cfg, positions, q, k)
     B, S = x.shape[:2]
     if _resolve_impl(impl, x) == "flash" and _flash_eligible(cfg):
-        out = flash_prefill.flash_attention(q.contiguous(), k.contiguous(),
-                                            v.contiguous(), causal=causal,
-                                            window=window)
+        out = _flash_prefill(q, k, v, causal=causal, window=window)
     elif S <= 2 * Q_CHUNK:
         bias = _mask_bias(cfg, positions, positions, causal, window)[:, None]
         out = _sdpa(cfg, q, k, v, bias)
@@ -190,8 +278,7 @@ def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q, k, v = _project_qkv(cfg, p, x, memory)
     B, Sq = x.shape[:2]
     if _resolve_impl(impl, x) == "flash" and _flash_eligible(cfg):
-        out = flash_prefill.flash_attention(q.contiguous(), k.contiguous(),
-                                            v.contiguous(), causal=False)
+        out = _flash_prefill(q, k, v, causal=False)
     else:
         out = _sdpa(cfg, q, k, v, torch.zeros((), dtype=torch.float32,
                                               device=x.device))
@@ -216,7 +303,7 @@ def cross_decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
         q = _headwise_rms(q, p["q_norm"]["scale"], cfg.norm_eps)
     k, v = cache["k_mem"], cache["v_mem"]
     T = k.shape[1]
-    if _resolve_impl(impl, x) == "flash" and _flash_eligible(cfg):
+    if _resolve_impl(impl, x) == "flash" and _flash_decode_eligible(cfg):
         valid = torch.ones((B, T), dtype=torch.bool, device=x.device)
         out = flash_decode.decode_attention(q[:, 0], _kernel_kv(k, q),
                                             _kernel_kv(v, q), valid)
@@ -237,16 +324,38 @@ def _ring_len(cfg: ModelConfig, context_len: int, kind: str) -> int:
 def build_cache_from_full(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
                           context_len: int, kind: str, dtype) -> dict:
     """Scatter full-sequence K/V (prefill) into the ring-cache layout."""
-    B, S = k.shape[:2]
     L = _ring_len(cfg, context_len, kind)
+    if isinstance(k, DTensor):          # rows and heads on their shards
+        pl = _shards.moved(k.placements, {0: 0, 2: 2})
+        ck, cv = _shards.on_shards(
+            lambda k, v: _ring_from_full(k, v, L, dtype), (k, v), (pl, pl),
+            (pl, pl))
+    else:
+        ck, cv = _ring_from_full(k, v, L, dtype)
+    return {"k": _shard_cache(ck), "v": _shard_cache(cv)}
+
+
+def _ring_from_full(k, v, L: int, dtype):
+    """The last min(S, L) positions of k/v [B,S,KV,dh] at their ring
+    slots of fresh zeroed [B,L,KV,dh] caches."""
+    B, S = k.shape[:2]
     keep = min(S, L)
     slots = torch.remainder(torch.arange(S - keep, S, device=k.device), L)
-    shape = (B, L, cfg.num_kv_heads, cfg.head_dim)
+    shape = (B, L) + tuple(k.shape[2:])
     ck = torch.zeros(shape, dtype=dtype, device=k.device)
     cv = torch.zeros(shape, dtype=dtype, device=k.device)
     ck[:, slots] = k[:, S - keep:].to(dtype)
     cv[:, slots] = v[:, S - keep:].to(dtype)
-    return {"k": ck, "v": cv}
+    return ck, cv
+
+
+def _shard_cache(x: torch.Tensor) -> torch.Tensor:
+    """KV-cache sharding: batch over DP; KV heads over TP when divisible,
+    else the cache length."""
+    tp = _tp_size()
+    if tp > 1 and x.shape[2] % tp == 0:
+        return shard(x, "dp", None, "tp", None)
+    return shard(x, "dp", "tp", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +411,13 @@ def _flash_eligible(cfg: ModelConfig) -> bool:
     return not cfg.logit_softcap
 
 
+def _flash_decode_eligible(cfg: ModelConfig) -> bool:
+    """The flash-decode kernel also reduces over the whole cache length
+    of a row, so it needs an unsharded (TP 1) cache, as in the JAX
+    package."""
+    return _flash_eligible(cfg) and _tp_size() == 1
+
+
 def paged_decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
                            cache: dict, t, pages: torch.Tensor,
                            impl: str = "auto"):
@@ -339,7 +455,7 @@ def paged_decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     valid = k_pos >= 0
 
     impl = _resolve_impl(impl, x)
-    if impl == "flash" and _flash_eligible(cfg):
+    if impl == "flash" and _flash_decode_eligible(cfg):
         out = flash_decode.paged_decode_attention(
             q[:, 0], _kernel_kv(k, q), _kernel_kv(v, q),
             pages.to(torch.int32).contiguous(), valid)
@@ -361,6 +477,9 @@ def _sdpa_grouped(cfg: ModelConfig, q, k, v, bias) -> torch.Tensor:
     B, Sq, H, dh = q.shape
     KV = k.shape[2]
     G = H // KV
+    # Under TP the cache is sharded over its KV heads or its length, not
+    # q's groups: q's heads are gathered before they are grouped.
+    q = shard(q, "dp", None, None, None)
     q = q.reshape(B, Sq, KV, G, dh)
     logits = torch.einsum("bqkgd,bskd->bkgqs", q, k).float()
     logits = logits * (dh ** -0.5)
@@ -389,14 +508,21 @@ def decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q, k_new, v_new = _project_qkv(cfg, p, x, x)
     q, k_new = _rope(cfg, tb[:, None], q, k_new)
 
-    # One slot per row, written in place. (The JAX package rewrites the
-    # whole ring with a mask-select to keep a TP-sharded cache local; the
-    # numbers are identical.)
+    # One slot per row, written in place. A sharded cache (a DTensor) is
+    # rewritten whole with the JAX package's mask-select, which stays
+    # local where an indexed store would gather the cache; the numbers
+    # are identical.
     slot = torch.remainder(tb, L).long()
-    rows = torch.arange(B, device=x.device)
     k, v = cache["k"], cache["v"]
-    k[rows, slot] = k_new[:, 0].to(k.dtype)
-    v[rows, slot] = v_new[:, 0].to(v.dtype)
+    if isinstance(k, DTensor):
+        lane = (torch.arange(L, device=x.device)[None, :, None, None]
+                == slot[:, None, None, None])
+        k.copy_(torch.where(lane, k_new.to(k.dtype), k))
+        v.copy_(torch.where(lane, v_new.to(v.dtype), v))
+    else:
+        rows = torch.arange(B, device=x.device)
+        k[rows, slot] = k_new[:, 0].to(k.dtype)
+        v[rows, slot] = v_new[:, 0].to(v.dtype)
 
     # Absolute position of every cache slot given the ring layout: slot i
     # holds the most recent token congruent to i mod L that is <= t.
@@ -407,7 +533,7 @@ def decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
         valid &= (tb[:, None] - k_pos) < window
 
     impl = _resolve_impl(impl, x)
-    if impl == "flash" and _flash_eligible(cfg):
+    if impl == "flash" and _flash_decode_eligible(cfg):
         out = flash_decode.decode_attention(q[:, 0], _kernel_kv(k, q),
                                             _kernel_kv(v, q), valid)
         out = out[:, None]                                     # [B,1,H,dh]

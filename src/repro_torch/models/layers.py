@@ -13,8 +13,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels import _shards
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import gather_fsdp, shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -40,19 +43,38 @@ def init_norm(cfg: ModelConfig, device, dim: Optional[int] = None) -> dict:
     return p
 
 
+# Dtype in which norm *tensors* live (hillclimb lever). "float32"
+# (default) upcasts the whole [B,S,D] activation; "compute" keeps
+# tensor-sized values in the compute dtype and does only the reductions
+# (mean/var) in fp32.
+NORM_RESIDENT_DTYPE = "float32"
+
+
 def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm / LayerNorm computed entirely in fp32, output in x's dtype
-    (the JAX package's default fp32-resident path)."""
+    """RMSNorm / LayerNorm, output in x's dtype: entirely in fp32 (the
+    JAX package's default fp32-resident path), or with tensor-sized
+    values in x's dtype under ``NORM_RESIDENT_DTYPE = "compute"``."""
     dt = x.dtype
-    x = x.float()
+    if NORM_RESIDENT_DTYPE == "float32":
+        x = x.float()
+        if cfg.norm == "layernorm":
+            x = x - x.mean(-1, keepdim=True)
+        var = (x * x).mean(-1, keepdim=True)
+        x = x * torch.rsqrt(var + cfg.norm_eps)
+        x = x * p["scale"]
+        if cfg.norm == "layernorm":
+            x = x + p["bias"]
+        return x.to(dt)
     if cfg.norm == "layernorm":
-        x = x - x.mean(-1, keepdim=True)
-    var = (x * x).mean(-1, keepdim=True)
-    x = x * torch.rsqrt(var + cfg.norm_eps)
-    x = x * p["scale"]
+        mu = x.float().mean(-1, keepdim=True)
+        x = x - mu.to(dt)
+    var = torch.square(x.float()).mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + cfg.norm_eps)
+    x = x * inv.to(dt)
+    x = x * p["scale"].to(dt)
     if cfg.norm == "layernorm":
-        x = x + p["bias"]
-    return x.to(dt)
+        x = x + p["bias"].to(dt)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -71,10 +93,55 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, device,
 
 
 def apply_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(x, DTensor):
+        return _linear_sharded(p, x)
     y = x @ p["kernel"].to(x.dtype)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
+
+
+def _linear_sharded(p: dict, x) -> torch.Tensor:
+    """``apply_linear`` on DTensors, laid out as Megatron's column- and
+    row-parallel layers: the weight gathered over the data-parallel axes
+    (``gather_fsdp``) and sharded over TP as stored; on a mesh axis that
+    shards the weight's output features, x is whole there and y comes out
+    sharded; where it shards its input features, x is sharded to match
+    and y is a partial sum; elsewhere x keeps its rows' sharding. The
+    products run on local shards (``local_map``), so DTensor picks no
+    strategy of its own, forward or backward."""
+    w = gather_fsdp(p["kernel"].to(x.dtype))
+    last = x.dim() - 1
+    xp, yp = [], []
+    for xpl, wpl in zip(x.placements, w.placements):
+        if isinstance(wpl, Shard) and wpl.dim == 1:        # column
+            xp.append(xpl if isinstance(xpl, Shard) and xpl.dim < last
+                      else Replicate())
+            yp.append(Shard(last))
+        elif isinstance(wpl, Shard):                        # row
+            xp.append(Shard(last))
+            yp.append(Partial())
+        else:
+            keep = isinstance(xpl, Shard) and xpl.dim < last
+            xp.append(xpl if keep else Replicate())
+            yp.append(xp[-1])
+    bias = p.get("bias")
+    # A bias joins a column shard locally, and a partial sum after it.
+    local_bias = bias is not None and not any(
+        isinstance(pl, Partial) for pl in yp)
+    args, in_pl = (x, w), (tuple(xp), tuple(w.placements))
+    if local_bias:
+        args += (bias.to(x.dtype),)
+        in_pl += (tuple(Shard(0) if isinstance(pl, Shard) and pl.dim == last
+                        else Replicate() for pl in yp),)
+    y = _shards.on_shards(_matmul_bias, args, in_pl, tuple(yp))
+    if bias is not None and not local_bias:
+        y = y + bias.to(x.dtype)
+    return y
+
+
+def _matmul_bias(x, w, b=None):
+    return x @ w if b is None else x @ w + b
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +198,7 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         h = act(apply_linear(p["w_gate"], x)) * apply_linear(p["w_up"], x)
     else:
         h = _gelu(apply_linear(p["w_up"], x))
+    h = shard(h, "dp", None, "tp")
     return apply_linear(p["w_down"], h)
 
 
@@ -157,10 +225,34 @@ def init_embed(cfg: ModelConfig, gen, device, dtype) -> dict:
 
 def embed_tokens(cfg: ModelConfig, p: dict, tokens: torch.Tensor
                  ) -> torch.Tensor:
-    x = p["tokens"].to(cdtype(cfg))[tokens.long()]
+    table = p["tokens"].to(cdtype(cfg))
+    if isinstance(table, DTensor):
+        x = _lookup_sharded(table, tokens.long())
+    else:
+        x = table[tokens.long()]
+    x = shard(x, "dp", None, None)
     if cfg.scale_embed:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                         device=x.device)
     return x
+
+
+def _lookup_sharded(table, ids) -> torch.Tensor:
+    """``table[ids]`` on DTensors: the table, vocab-(row-)sharded over
+    the FSDP axis, gathered at use as every FSDP weight is, then each
+    device looks up its own rows of ids (``local_map``; DTensor's own
+    lookup and its backward differ between releases)."""
+    table = gather_fsdp(table)
+    t_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+                 for p in table.placements)
+    i_pl = (_shards.moved(ids.placements, {d: d for d in range(ids.dim())})
+            if isinstance(ids, DTensor)
+            else (Replicate(),) * table.device_mesh.ndim)
+    out_pl = tuple(a if isinstance(a, Shard) else
+                   Shard(ids.dim()) if isinstance(b, Shard) else Replicate()
+                   for a, b in zip(i_pl, t_pl))
+    return _shards.on_shards(lambda t, i: t[i], (table, ids), (t_pl, i_pl),
+                             out_pl)
 
 
 def add_conv_pos(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -170,15 +262,35 @@ def add_conv_pos(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     ``conv_pos`` leaf."""
     if "conv_pos" not in p:
         return x
-    w = p["conv_pos"].to(x.dtype).permute(2, 1, 0)     # WIO -> [D, D/g, W]
+    w = p["conv_pos"].to(x.dtype)
+    if isinstance(x, DTensor):
+        # Each device convolves its own rows with the whole kernel
+        # (DTensor's convolution strategies shard channels or frames).
+        x = shard(x, "dp", None, None)
+        pl = _shards.moved(x.placements, {0: 0})
+        rep = _shards.moved(x.placements, {})
+        pos = _shards.on_shards(
+            lambda x, w: _conv_pos(x, w, cfg.conv_pos_groups), (x, w),
+            (pl, rep), pl)
+    else:
+        pos = _conv_pos(x, w, cfg.conv_pos_groups)
+    return x + _gelu(pos)
+
+
+def _conv_pos(x: torch.Tensor, w: torch.Tensor, groups: int) -> torch.Tensor:
+    """The grouped conv1d of x [B,S,D] over S with the WIO kernel ``w``,
+    XLA's SAME padding."""
+    w = w.permute(2, 1, 0)                             # WIO -> [D, D/g, W]
     width = w.shape[-1]
     left = (width - 1) // 2
     xt = F.pad(x.transpose(1, 2), (left, width - 1 - left))
-    pos = F.conv1d(xt, w, groups=cfg.conv_pos_groups).transpose(1, 2)
-    return x + _gelu(pos)
+    return F.conv1d(xt, w, groups=groups).transpose(1, 2)
 
 
 def lm_logits(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ p["tokens"].to(x.dtype).T
+        # Resharded vocab-sharded so logits come out vocab-sharded from
+        # a local product.
+        w = shard(p["tokens"], "tp", None)
+        return x @ w.to(x.dtype).T
     return apply_linear(p["head"], x)

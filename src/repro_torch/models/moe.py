@@ -21,15 +21,27 @@ kernel here: the JAX MoE runs no Pallas kernel either (XLA einsums), and
 the batched products go to ``torch.bmm`` as the JAX package leaves them
 to XLA. Every expert's weights are read on every call, whatever the
 routing, as in the JAX package's stacked einsums.
+
+On DTensors (a sharding context) each device routes its own rows: the
+tokens are batch-sharded and replicated over TP, as the JAX package's
+``shard`` keeps its expert buffers, and the expert weights sharded over
+TP on their hidden width, as it keeps the expert hidden state; the
+dispatch above then runs on the local shards (``local_map``), and the
+TP shards' partial outputs are summed. Routing is per row, so every
+device's rows route as they would unsharded; the load-balance means are
+averaged over the batch shards.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels import _shards
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import shard
 
 # Tokens are routed within groups of at most this many tokens when the
 # sequence is a whole number of groups longer than one (GShard grouping);
@@ -89,11 +101,25 @@ def route(cfg: ModelConfig, p: dict, x: torch.Tensor) -> dict:
 def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (out [B, S, D] in x's dtype, aux_loss fp32 scalar)."""
+    if isinstance(x, DTensor):
+        return _apply_moe_sharded(cfg, p, x)
+    y, f_e, p_e = _moe(cfg, p, x)
+    return y, _aux_loss(cfg, f_e, p_e)
+
+
+def _aux_loss(cfg: ModelConfig, f_e, p_e):
+    """Switch-style load-balance loss, E * sum_e f_e * P_e."""
+    return cfg.num_experts * torch.sum(f_e * p_e) * cfg.router_aux_loss
+
+
+def _moe(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """(out [B, S, D], the routed share f_e [E], the mean router
+    probability P_e [E]) for plain tensors."""
     B0, S0, D = x.shape
     if S0 > GROUP_TOKENS and S0 % GROUP_TOKENS == 0:
         n = S0 // GROUP_TOKENS
-        out, aux = apply_moe(cfg, p, x.reshape(B0 * n, GROUP_TOKENS, D))
-        return out.reshape(B0, S0, D), aux
+        out, f_e, p_e = _moe(cfg, p, x.reshape(B0 * n, GROUP_TOKENS, D))
+        return out.reshape(B0, S0, D), f_e, p_e
 
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
@@ -129,5 +155,66 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor
 
     f_e = r["mask"].mean(dim=(0, 1))                             # routed share
     p_e = r["probs"].mean(dim=(0, 1))                            # router prob
-    aux = E * torch.sum(f_e * p_e) * cfg.router_aux_loss
-    return y, aux
+    return y, f_e, p_e
+
+
+class _GradScale(torch.autograd.Function):
+    """Identity forward; the gradient times ``s``."""
+
+    @staticmethod
+    def forward(ctx, t, s: float):
+        ctx.s = s
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def _apply_moe_sharded(cfg: ModelConfig, p: dict, x):
+    """``apply_moe`` on DTensors: each device routes its own rows against
+    its TP shard of every expert (see the module docstring)."""
+    mesh = x.device_mesh
+    x = shard(x, "dp", None, None)
+    router = shard(p["router"]["kernel"], None, None)
+    w_gate = shard(p["w_gate"], None, None, "tp")
+    w_up = shard(p["w_up"], None, None, "tp")
+    w_down = shard(p["w_down"], None, "tp", None)
+    # Rows split over the batch shards: their means average, and a
+    # partial sum of mean / n_rows_shards is exact to a rounding.
+    n_row_shards = 1
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard):
+            n_row_shards *= mesh.size(i)
+    y_pl = tuple(Shard(0) if isinstance(a, Shard) else
+                 Partial() if isinstance(b, Shard) else Replicate()
+                 for a, b in zip(x.placements, w_down.placements))
+    mean_pl = tuple(Partial() if isinstance(a, Shard) else Replicate()
+                    for a in x.placements)
+
+    # Every TP shard routes the same rows the same way, so the gradient
+    # the load-balance loss sends back through the router arrives whole
+    # on each; the TP shards' gradients are summed (their expert shares
+    # differ), so that one is cut to its share.
+    n_tp = 1
+    for i, pl in enumerate(y_pl):
+        if isinstance(pl, Partial):
+            n_tp *= mesh.size(i)
+
+    def local(x, router, w_gate, w_up, w_down):
+        y, f_e, p_e = _moe(cfg, {"router": {"kernel": router},
+                                 "w_gate": w_gate, "w_up": w_up,
+                                 "w_down": w_down}, x)
+        if n_tp > 1:
+            p_e = _GradScale.apply(p_e, 1.0 / n_tp)
+        if n_row_shards > 1:
+            f_e, p_e = f_e / n_row_shards, p_e / n_row_shards
+        return y, f_e, p_e
+
+    args = (x, router, w_gate, w_up, w_down)
+    y, f_e, p_e = _shards.on_shards(
+        local, args, tuple(tuple(a.placements) for a in args),
+        (y_pl, mean_pl, mean_pl))
+    rep = (Replicate(),) * mesh.ndim
+    return y, _aux_loss(cfg, f_e.redistribute(mesh, rep),
+                        p_e.redistribute(mesh, rep))

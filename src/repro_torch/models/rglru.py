@@ -24,10 +24,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _shards, ref
 from repro_torch.kernels import rglru_scan as scan_kernel
 from repro_torch.models import attention, layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import shard
 
 _C = 8.0
 
@@ -65,9 +66,18 @@ def _block_diag(p: dict, which: str, x: torch.Tensor) -> torch.Tensor:
     """[B,S,W] through block-diagonal [heads, blk, blk] weights."""
     B, S, W = x.shape
     hds, blk, _ = p[f"gate_{which}"].shape
+    # Under TP the gate heads split over TP with x's channels (whole
+    # heads per shard), or nothing does.
+    tp = "tp" if hds % attention._tp_size() == 0 else None
+    x = shard(x, "dp", None, tp)
+    w = shard(p[f"gate_{which}"], tp, None, None)
+    bias = shard(p[f"bias_{which}"], tp)
     xh = x.reshape(B, S, hds, blk)
-    y = torch.einsum("bshi,hij->bshj", xh, p[f"gate_{which}"].to(x.dtype))
-    return y.reshape(B, S, W) + p[f"bias_{which}"].to(x.dtype)
+    y = torch.einsum("bshi,hij->bshj", xh, w.to(x.dtype))
+    # Channels over TP again, as the gates and the scan take them (and so
+    # their gradient comes back whole before it is split into heads).
+    y = shard(y.reshape(B, S, W), "dp", None, "tp")
+    return y + bias.to(x.dtype)
 
 
 def _conv1d(p: dict, x: torch.Tensor,
@@ -107,6 +117,9 @@ def rglru_scan(cfg: ModelConfig, p: dict, x: torch.Tensor,
     a, gated = _gates(cfg, p, x)
     if attention._resolve_impl(impl, x) == "flash":
         y, h_last = scan_kernel.rglru_scan(a, gated, h0.float())
+    elif _shards.is_dtensor(gated):     # the plain loop on local shards
+        y, h_last = _shards.on_shards(ref.rglru_scan, (a, gated, h0),
+                                      *scan_kernel.shard_placements(gated))
     else:
         y, h_last = ref.rglru_scan(a, gated, h0)
     return y.to(x.dtype), h_last
@@ -139,6 +152,7 @@ def apply_rglru_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """
     gate = layers._gelu(layers.apply_linear(p["in_gate"], x))     # [B,S,W]
     xin = layers.apply_linear(p["in_x"], x)                        # [B,S,W]
+    xin = shard(xin, "dp", None, "tp")
     if state is None:
         xin, conv_tail = _conv1d(p, xin)
         h0 = torch.zeros((x.shape[0], cfg.lru_width), dtype=torch.float32,

@@ -15,7 +15,8 @@ tensor), ``"dense"`` the plain sequential loop itself, ``"auto"`` flash
 on a CUDA device. The JAX package runs an associative scan in chunks
 (``scan_utils.chunked_recurrence``) over [B,S,Di,N] operands whose dtype
 is a knob (``SCAN_DTYPE``); the kernel discretises in registers and
-carries h across the sequence itself, so neither is ported. Decode keeps
+carries h across the sequence itself, so the chunks are not ported, and
+the knob rounds only the plain loop's exp(Δ⊗A) and Δu⊗B. Decode keeps
 (h [B,Di,N], conv tail [B,K-1,Di]) as fp32 state and takes one step in
 plain PyTorch, as the JAX package does.
 """
@@ -27,10 +28,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _shards, ref
 from repro_torch.kernels import ssm_scan as scan_kernel
 from repro_torch.models import attention, layers, rglru
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import shard
+
+# Dtype of the scan elements exp(Δ⊗A) and Δu⊗B on the plain route
+# (hillclimb lever); fp32 is the reference. The kernel keeps them fp32 in
+# registers whatever it says.
+SCAN_DTYPE = "float32"
 
 
 def d_inner(cfg: ModelConfig) -> int:
@@ -88,7 +95,12 @@ def selective_scan(cfg: ModelConfig, p: dict, u: torch.Tensor,
             h0.float())
     if attention._resolve_impl(impl, u) == "flash":
         return scan_kernel.ssm_scan(*args)
-    return ref.ssm_scan(*args)
+    elem = None if SCAN_DTYPE == "float32" else layers.to_dtype(SCAN_DTYPE)
+    if _shards.is_dtensor(u):           # the plain loop on local shards
+        return _shards.on_shards(
+            lambda *a: ref.ssm_scan(*a, elem_dtype=elem), args,
+            *scan_kernel.shard_placements(u))
+    return ref.ssm_scan(*args, elem_dtype=elem)
 
 
 def selective_step(cfg: ModelConfig, p: dict, u: torch.Tensor,
@@ -119,6 +131,7 @@ def apply_mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     must be 1. ``want_state=True`` (prefill) returns the final SSM/conv
     state of a full-sequence pass; ``impl`` picks its scan."""
     uz = layers.apply_linear(p["in_proj"], x)
+    uz = shard(uz, "dp", None, "tp")
     u, z = torch.chunk(uz, 2, dim=-1)
     if state is None:
         u_raw, conv_tail = _conv1d(p, u)

@@ -20,6 +20,14 @@ K/V projected once by the prefill (``memory=``), in the cache dtype. With
 ``cfg.num_experts`` every MLP half is the MoE of ``models.moe``, and
 ``forward`` returns the sum of its auxiliary losses. Audio encoders take
 ``embeddings=`` in place of tokens and add the conv positional embedding.
+
+The JAX package's ``shard`` constraints sit where it has them: the
+residual stream after every block of a full-sequence forward (and at
+superblock boundaries, feature-sharded with ``resid_tp``), the embedded
+input of every entry point and the logits it returns. Without a sharding
+context they are no-ops. Positions are ``[1, S]`` and broadcast over the
+batch (the JAX package broadcasts them to ``[B, S]``): the same numbers,
+and under a mesh a plain tensor that no batch shard has to hold.
 """
 
 from __future__ import annotations
@@ -28,10 +36,13 @@ from typing import Any, Optional
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels import _shards
 from repro_torch.models import attention, layers, moe, rglru, ssm
 from repro_torch.models.config import (ATTN, LOCAL, MAMBA, RGLRU, SWA, XATTN,
                                        ModelConfig)
+from repro_torch.sharding import shard
 
 _ATTN_KINDS = (ATTN, SWA, LOCAL)
 _RECURRENT_KINDS = (RGLRU, MAMBA)
@@ -120,7 +131,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     check_supported(cfg)
     device = torch.device(device)
     dtype = layers.to_dtype(dtype or cfg.compute_dtype)
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    # Meta tensors (``param_shapes``) draw nothing; a CPU generator
+    # stands in for the meta device, which has none.
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device
+                          ).manual_seed(int(seed))
     params: dict[str, Any] = {
         "embed": layers.init_embed(cfg, gen, device, dtype)}
     if cfg.num_repeats:
@@ -133,6 +147,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                           for i, kind in enumerate(cfg.remainder)}
     params["final_norm"] = layers.init_norm(cfg, device)
     return params
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree as meta tensors (no allocation), with the JAX
+    package's ``param_shapes`` leaves' shapes and dtypes (all
+    ``cfg.param_dtype``), ``blocks`` a list of per-repeat dicts."""
+    return init_params(cfg, 0, device="meta", dtype=cfg.param_dtype)
 
 
 def params_device(params: dict) -> torch.device:
@@ -155,8 +176,9 @@ def _mlp_half(cfg: ModelConfig, kind: str, p: dict,
     return x + layers.apply_mlp(cfg, p["mlp"], h), None
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+def _positions(S: int, device) -> torch.Tensor:
+    """[1, S]: broadcast over the batch."""
+    return torch.arange(S, dtype=torch.int32, device=device)[None]
 
 
 def _apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
@@ -173,7 +195,18 @@ def _apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     else:
         h = attention.self_attention(cfg, p["attn"], h, positions, kind,
                                      impl=impl)
-    return _mlp_half(cfg, kind, p, x + h)
+    return _residual(cfg, kind, p, x, h)
+
+
+def _residual(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
+              h: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x + h, then the MLP half: (x, the MoE's aux loss or None), the
+    residual stream batch-sharded after each add (the JAX package's
+    constraints in ``_apply_block``; here in every entry point's blocks,
+    since DTensor otherwise may leave the stream sharded over its
+    sequence)."""
+    x, aux = _mlp_half(cfg, kind, p, shard(x + h, "dp", None, None))
+    return shard(x, "dp", None, None), aux
 
 
 def _apply_superblock(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -193,7 +226,8 @@ def forward(cfg: ModelConfig, params: dict, *,
             embeddings: Optional[torch.Tensor] = None,
             memory: Optional[torch.Tensor] = None,
             remat: bool = False,
-            impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+            impl: str = "auto",
+            resid_tp: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over ``tokens`` [B,S] or frame
     ``embeddings`` [B,S,D] (audio), with frontend ``memory`` [B,T,D] for
     cross-attention blocks. Returns (hidden [B,S,D], aux_loss: the sum of
@@ -205,12 +239,19 @@ def forward(cfg: ModelConfig, params: dict, *,
     JAX package's ``jax.checkpoint`` with ``nothing_saveable``): only the
     residual stream between superblocks is saved. The ``tail`` blocks are
     not recomputed, as in the JAX package. Nothing in a block draws
-    random numbers, so no RNG state is kept for the recomputation."""
+    random numbers, so no RNG state is kept for the recomputation.
+
+    ``resid_tp`` feature-shards the residual stream at superblock
+    boundaries under a sharding context (FSDP+SP): the tensors remat
+    saves shrink by the TP width at the cost of per-layer feature
+    all-gathers. Without a context it changes nothing."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens, embeddings)
+    resid_spec = ("dp", None, "tp") if resid_tp else ("dp", None, None)
+    x = shard(x, *resid_spec)
     memory = _memory(cfg, memory, x)
-    B, S = x.shape[:2]
-    positions = _positions(B, S, x.device)
+    S = x.shape[1]
+    positions = _positions(S, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.get("blocks", []):
         if remat:
@@ -219,6 +260,7 @@ def forward(cfg: ModelConfig, params: dict, *,
                 use_reentrant=False, preserve_rng_state=False)
         else:
             x, a = _apply_superblock(cfg, blk, x, positions, memory, impl)
+        x = shard(x, *resid_spec)
         aux_total = aux_total + a
     for i, kind in enumerate(cfg.remainder):
         x, a = _apply_block(cfg, kind, params["tail"][str(i)], x, positions,
@@ -231,7 +273,8 @@ def forward(cfg: ModelConfig, params: dict, *,
 
 def logits_from_hidden(cfg: ModelConfig, params: dict,
                        x: torch.Tensor) -> torch.Tensor:
-    return layers.lm_logits(cfg, params["embed"], x)
+    logits = layers.lm_logits(cfg, params["embed"], x)
+    return shard(logits, "dp", None, "tp")
 
 
 def cross_entropy(cfg: ModelConfig, logits: torch.Tensor,
@@ -245,8 +288,14 @@ def cross_entropy(cfg: ModelConfig, logits: torch.Tensor,
     [B, S, V] tensor (2.5 GB at Qwen2's vocabulary of 151936 for a
     4 x 1024 microbatch)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    true_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor) and any(
+            isinstance(p, Shard) and p.dim == logits.dim() - 1
+            for p in logits.placements):
+        lse, true_logit = _lse_and_true_logit_sharded(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        true_logit = torch.gather(logits, -1,
+                                  labels.long()[..., None])[..., 0]
     nll = lse - true_logit
     if mask is not None:
         mask = mask.float()
@@ -254,22 +303,75 @@ def cross_entropy(cfg: ModelConfig, logits: torch.Tensor,
     return nll.mean()
 
 
+class _ShardedLogSumExp(torch.autograd.Function):
+    """logsumexp over the last dim of a DTensor whose last dim is sharded:
+    the shards' maxima and exponential sums reduce to [..., 1], and the
+    gradient is the softmax, formed shard by shard. (Left to itself,
+    DTensor's backward of the same expression gathers the whole
+    tensor.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.amax(-1, keepdim=True)
+        lse = m + torch.log(torch.exp(x - m).sum(-1, keepdim=True))
+        ctx.save_for_backward(x, lse)
+        return lse[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - lse)
+
+
+def _lse_and_true_logit_sharded(logits, labels):
+    """``cross_entropy``'s two reductions over vocab-sharded DTensor
+    logits, each vocab shard working on its own columns (the JAX
+    package's one-hot contraction does the same under XLA): the
+    log-sum-exp from the shards' maxima and exponential sums, and the
+    true logit as a masked local gather whose shards are summed. Neither
+    gathers the [B, S, V] logits."""
+    lse = _ShardedLogSumExp.apply(logits)
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    vocab = [i for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim == last]
+    lab_pl = tuple(Replicate() if i in vocab else p
+                   for i, p in enumerate(logits.placements))
+    out_pl = tuple(Partial() if i in vocab else p
+                   for i, p in enumerate(lab_pl))
+
+    def local(lg, lb):
+        coord = mesh.get_coordinate()
+        shard_idx = 0
+        for i in vocab:
+            shard_idx = shard_idx * mesh.size(i) + coord[i]
+        v = lg.shape[-1]
+        idx = lb - shard_idx * v
+        ok = (idx >= 0) & (idx < v)
+        got = torch.gather(lg, -1, idx.clamp(0, v - 1)[..., None])[..., 0]
+        return torch.where(ok, got, torch.zeros_like(got))
+
+    true_logit = _shards.on_shards(local, (logits, labels.long()),
+                                   (tuple(logits.placements), lab_pl),
+                                   out_pl)
+    return lse, true_logit
+
+
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
-            remat: bool = False, impl: str = "auto"
-            ) -> tuple[torch.Tensor, dict]:
+            remat: bool = False, impl: str = "auto",
+            resid_tp: bool = False) -> tuple[torch.Tensor, dict]:
     """Language-model / masked-prediction loss over one (micro)batch of
     tensors: ``tokens`` and ``labels`` (causal: the next token within
     the sequence, optionally under ``mask``), or HuBERT's frame
     ``embeddings`` with per-frame ``targets`` at ``mask``; plus
     ``image_embeds`` for cross-attention stacks. The MoE aux loss is
     added. ``impl`` reaches ``forward``: training passes "dense", since
-    the kernels have no backward pass."""
+    the kernels have no backward pass. ``resid_tp`` reaches ``forward``."""
     hidden, aux = forward(
         cfg, params,
         tokens=batch.get("tokens"),
         embeddings=batch.get("embeddings"),
         memory=batch.get("image_embeds"),
-        remat=remat, impl=impl)
+        remat=remat, impl=impl, resid_tp=resid_tp)
     logits = logits_from_hidden(cfg, params, hidden)
     mask = batch.get("mask")
     if cfg.causal and "targets" not in batch:
@@ -299,11 +401,11 @@ def prefill(cfg: ModelConfig, params: dict, *,
     Returns (logits [B,S,V], decode_state positioned at t = S).
     """
     check_supported(cfg)
-    x = _embed(cfg, params, tokens, embeddings)
+    x = shard(_embed(cfg, params, tokens, embeddings), "dp", None, None)
     memory = _memory(cfg, memory, x)
-    B, S = x.shape[:2]
+    S = x.shape[1]
     context_len = context_len or S
-    positions = _positions(B, S, x.device)
+    positions = _positions(S, x.device)
     caches: dict[tuple, dict] = {}
     for group, r, i, kind in _layers(cfg):
         p = _block_params(params, group, r, i)
@@ -325,10 +427,10 @@ def prefill(cfg: ModelConfig, params: dict, *,
                 impl=impl)
             caches[group, r, i] = attention.build_cache_from_full(
                 cfg, k, v, context_len, kind, cache_dtype)
-        x, _ = _mlp_half(cfg, kind, p, x + h)
+        x, _ = _residual(cfg, kind, p, x, h)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     logits = layers.lm_logits(cfg, params["embed"], x)
-    return logits, _assemble_state(cfg, caches)
+    return shard(logits, "dp", None, "tp"), _assemble_state(cfg, caches)
 
 
 def _assemble_state(cfg: ModelConfig, caches: dict) -> dict:
@@ -389,6 +491,15 @@ def init_decode_state(cfg: ModelConfig, batch: int, context_len: int,
         state["tail"] = {str(i): block_state(kind, ())
                          for i, kind in enumerate(cfg.remainder)}
     return state
+
+
+def decode_state_spec(cfg: ModelConfig, batch: int, context_len: int,
+                      dtype=torch.bfloat16, page_size: Optional[int] = None,
+                      num_pages: Optional[int] = None) -> dict:
+    """``init_decode_state``'s tree as meta tensors (no allocation): the
+    JAX package's ``decode_state_spec``, leaf for leaf."""
+    return init_decode_state(cfg, batch, context_len, dtype, page_size,
+                             num_pages, device="meta")
 
 
 def _kinds(cfg: ModelConfig, group: str):
@@ -563,7 +674,8 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
     state as the shared page pool. The state is updated in place and returned.
     Returns (logits [B,1,V], state).
     """
-    x = layers.embed_tokens(cfg, params["embed"], tokens)
+    x = shard(layers.embed_tokens(cfg, params["embed"], tokens),
+              "dp", None, None)
     for group, r, i, kind in _layers(cfg):
         p = _block_params(params, group, r, i)
         cache = _leaf_view(state, group, r, i)
@@ -584,9 +696,10 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
         else:
             h, _ = attention.decode_attention(cfg, p["attn"], h, cache, t,
                                               kind, impl=attn_impl)
-        x, _ = _mlp_half(cfg, kind, p, x + h)
+        x, _ = _residual(cfg, kind, p, x, h)
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    return layers.lm_logits(cfg, params["embed"], x), state
+    logits = layers.lm_logits(cfg, params["embed"], x)
+    return shard(logits, "dp", None, "tp"), state
 
 
 # ---------------------------------------------------------------------------
@@ -606,12 +719,14 @@ def prefill_extend(cfg: ModelConfig, params: dict, state: dict,
     if kinds - set(_ATTN_KINDS):
         raise ValueError(f"{cfg.name}: chunked prefill needs an "
                          f"attention-only stack, not {sorted(kinds)}")
-    x = layers.embed_tokens(cfg, params["embed"], tokens)
+    x = shard(layers.embed_tokens(cfg, params["embed"], tokens),
+              "dp", None, None)
     for group, r, i, kind in _layers(cfg):
         p = _block_params(params, group, r, i)
         cache = _leaf_view(state, group, r, i)
         h = layers.apply_norm(cfg, p["norm"], x)
         h, _ = attention.extend_attention(cfg, p["attn"], h, cache, t0, kind)
-        x, _ = _mlp_half(cfg, kind, p, x + h)
+        x, _ = _residual(cfg, kind, p, x, h)
     x = layers.apply_norm(cfg, params["final_norm"], x[:, -1:])
-    return layers.lm_logits(cfg, params["embed"], x), state
+    logits = layers.lm_logits(cfg, params["embed"], x)
+    return shard(logits, "dp", None, "tp"), state

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import shard
 
 
 def make_sampler(temperature: float = 0.0, top_k: Optional[int] = None):
@@ -33,6 +34,8 @@ def make_sampler(temperature: float = 0.0, top_k: Optional[int] = None):
 
     def sample(logits: torch.Tensor,
                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        # Vocab-sharded logits (a sharding context) are gathered first.
+        logits = shard(logits, "dp", None, None)
         if temperature <= 0.0 or gen is None:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         x = logits.float()

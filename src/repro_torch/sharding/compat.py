@@ -1,0 +1,103 @@
+"""Device meshes for the port: the counterpart of
+``repro.sharding.compat``.
+
+``make_mesh`` builds a ``torch.distributed`` ``DeviceMesh`` over real
+devices: one process per device, each in the default process group. A
+one-device mesh needs no launcher, so a group of size 1 is started here
+when none exists; a larger mesh needs its processes' group first (one
+``init_process_group`` per rank).
+
+``planning_mesh`` builds a mesh of any size in one process, for tracing
+only: its process group is ``torch.distributed``'s fake backend, which
+completes every collective at once without moving data. Its device type
+is "cuda" wherever PyTorch is built for CUDA (a card need not be
+present); a CPU-only build cannot index a fake CUDA tensor ("PyTorch is
+not linked with support for cuda devices"), so there the mesh is of
+"cpu" devices, and the planning code asks for the kernels' route itself
+(``impl="flash"``) rather than reading it off the device. It never runs
+real work; this module is the only one that imports the fake backend.
+
+``shard_map`` has no counterpart here: its one user in the JAX package,
+``collective_matmul``, is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+import socket
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+_FAKE = "fake"
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _group_backend() -> str:
+    return str(dist.get_backend()).lower()
+
+
+def _drop_fake_group() -> None:
+    """A planning mesh's fake group makes way for any other group."""
+    if dist.is_initialized() and _group_backend() == _FAKE:
+        dist.destroy_process_group()
+
+
+def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
+              device_type: str = "cuda") -> DeviceMesh:
+    """A mesh over real devices of ``device_type``. Starts a process
+    group of size 1 (nccl on "cuda", gloo on "cpu") when the mesh has one
+    device and no group exists."""
+    size = math.prod(axis_shapes)
+    _drop_fake_group()
+    if not dist.is_initialized():
+        if size != 1:
+            raise ValueError(
+                f"a {tuple(axis_shapes)} mesh spans {size} processes: "
+                "start each rank's process group (init_process_group with "
+                "its rank and world size) before building it")
+        dist.init_process_group(
+            "nccl" if device_type == "cuda" else "gloo",
+            init_method=f"tcp://localhost:{_free_port()}",
+            world_size=1, rank=0)
+    return init_device_mesh(device_type, tuple(axis_shapes),
+                            mesh_dim_names=tuple(axis_names))
+
+
+def planning_mesh(axis_shapes: Sequence[int],
+                  axis_names: Sequence[str]) -> DeviceMesh:
+    """A mesh of ``prod(axis_shapes)`` devices on the fake backend
+    in this one process, as rank 0: for tracing under ``FakeTensorMode``
+    only. Replaces an earlier planning group of another size; refuses to
+    replace a real group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    size = math.prod(axis_shapes)
+    if dist.is_initialized():
+        if _group_backend() != _FAKE:
+            raise RuntimeError(
+                "a real process group is running: a planning mesh needs "
+                "the fake backend in a process of its own")
+        if dist.get_world_size() != size:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group(_FAKE, store=FakeStore(), rank=0,
+                                world_size=size)
+    return init_device_mesh(planning_device(), tuple(axis_shapes),
+                            mesh_dim_names=tuple(axis_names))
+
+
+def planning_device() -> str:
+    """The device type of planning meshes and their fake tensors."""
+    return "cuda" if torch.backends.cuda.is_built() else "cpu"
+
+
+def mesh_sizes(mesh) -> dict:
+    """{axis name: size} of a mesh."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))

@@ -21,6 +21,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.models import layers, transformer
 from repro_torch.models.config import ModelConfig
@@ -35,7 +36,7 @@ class TrainConfig:
     num_microbatches: int = 1
     remat: str = "full"            # none | full | dots ("dots" = "full")
     grad_accum_dtype: str = "float32"
-    resid_tp: bool = False         # needs the port's sharding (Q7)
+    resid_tp: bool = False         # feature-shard saved residuals over TP
     # The JAX package's switch between lax.scan and a Python loop over
     # microbatches; the port always loops in Python. Kept so that one
     # config reads in both packages.
@@ -59,26 +60,35 @@ def to_device(batch, device) -> dict:
 
 
 def split_batch(batch: dict, num_micro: int) -> dict:
-    """[B, ...] -> [num_micro, B/num_micro, ...]."""
+    """[B, ...] -> [num_micro, B/num_micro, ...]: microbatch i is rows
+    i*B/num_micro onward, as in the JAX package. A batch sharded over
+    its rows (a DTensor) splits strided instead, microbatch i being rows
+    i, i + num_micro, ...: each device then takes 1/num_micro of its own
+    rows, where a contiguous split would move rows between devices. The
+    step averages the same rows either way; only the order of the sums
+    differs."""
     def f(x):
         B = x.shape[0]
         if B % num_micro:
             raise ValueError(f"batch {B} does not split into {num_micro} "
                              "microbatches")
+        if isinstance(x, DTensor) and any(
+                isinstance(p, Shard) and p.dim == 0 for p in x.placements):
+            return x.reshape(B // num_micro, num_micro,
+                             *x.shape[1:]).transpose(0, 1)
         return x.reshape(num_micro, B // num_micro, *x.shape[1:])
     return tree.tree_map(f, batch)
 
 
 def make_loss_fn(model_cfg: ModelConfig, remat: str, resid_tp: bool = False):
-    if resid_tp:
-        raise ValueError("resid_tp shards the residual stream over a "
-                         "device mesh, which waits for the port of "
-                         "sharding/ (ROADMAP.md Q7)")
+    """``resid_tp`` feature-shards the residual stream under a sharding
+    context (``transformer.forward``); without one it changes nothing."""
     use_remat = _remat_flag(remat)
 
     def loss_fn(params, micro_batch):
         return transformer.loss_fn(model_cfg, params, micro_batch,
-                                   remat=use_remat, impl="dense")
+                                   remat=use_remat, impl="dense",
+                                   resid_tp=resid_tp)
     return loss_fn
 
 
@@ -154,4 +164,12 @@ def make_train_state(model_cfg: ModelConfig, seed: int = 0, device="cuda"):
     params = transformer.init_params(model_cfg, seed,
                                      device=resolve_device(device),
                                      dtype=model_cfg.param_dtype)
+    return params, opt_lib.init_opt_state(params)
+
+
+def train_state_shapes(model_cfg: ModelConfig):
+    """(params, opt_state) as meta tensors (no allocation): the JAX
+    package's ``train_state_shapes`` for the dry run. ``step`` is the
+    CPU int32 scalar ``init_opt_state`` makes."""
+    params = transformer.param_shapes(model_cfg)
     return params, opt_lib.init_opt_state(params)

@@ -513,3 +513,60 @@ def test_cuda_train_step_matches_cpu(cuda):
         assert err <= 1e-6 * float(b.double().norm())
     assert bool(torch.isfinite(m2["loss"])) and int(s2["step"]) == 1
     assert all(leaf.device.type == "cuda" for leaf in tree.leaves(p2))
+
+
+@pytest.mark.gpu
+def test_cuda_plan_estimate_matches_the_card(cuda):
+    """``chip_smoke.py`` phase 9b at a reduced size: the dry run's trace
+    of a train step on the 1x1 CUDA mesh counts the FLOPs the step runs
+    on the card with DTensor parameters (within 1%), estimates its peak
+    within a factor of 2, and the sharded step's loss equals the
+    unsharded step's."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.roofline.analysis import cost_of
+    from repro_torch.sharding import use_sharding
+    from repro_torch.sharding.rules import param_sharding
+    from repro_torch.train import tree
+    from repro_torch.train.train_step import (TrainConfig, make_train_state,
+                                              make_train_step)
+    import dataclasses
+    # Full width, 2 layers: large enough that the card's own workspaces
+    # (cuBLAS) are a small part of the peak.
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"), num_layers=2)
+    B, S, nm = 4, 256, 2
+    mesh = make_local_mesh()
+    try:
+        plan = cells.CellPlan(num_microbatches=nm)
+        cell = cells.build_cell(cfg, ShapeConfig("t", "train", S, B), mesh,
+                                plan=plan)
+        est = cells.trace_cell(cell, mesh)
+        step = make_train_step(cfg, TrainConfig(num_microbatches=nm))
+        params, opt = make_train_state(cfg, 0, device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+        batch = {"tokens": toks.int(), "labels": toks.int()}
+
+        def place(t):
+            return tree.tree_map(
+                lambda x, sh: DTensor.from_local(x, mesh, sh[1],
+                                                 run_check=False)
+                if x.is_cuda else x, t, param_sharding(t, mesh))
+        args = (place(params), place(opt), place(batch))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with use_sharding(cells.sharding_ctx(mesh)):
+            out, rec = cost_of(step, args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        sharded = float(out[2]["loss"].full_tensor())
+        del out
+        plain = float(step(params, opt, batch)[2]["loss"])
+        assert sharded == plain
+        assert rec.cost.flops == pytest.approx(est.cost.flops, rel=1e-2)
+        assert 0.5 <= est.peak_bytes / peak <= 2.0
+    finally:
+        dist.destroy_process_group()

@@ -348,5 +348,10 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     cfg = configs.get_reduced("qwen2-1.5b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train_state(cfg)
-    with pytest.raises(ValueError, match="Q7"):
-        make_loss_fn(cfg, "full", resid_tp=True)
+    # resid_tp needs no card either: without a sharding context it
+    # changes nothing.
+    params = tt.init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    batch = _torch(_batch(cfg))
+    with torch.no_grad():
+        assert torch.equal(make_loss_fn(cfg, "full", resid_tp=True)(
+            params, batch)[0], make_loss_fn(cfg, "full")(params, batch)[0])
