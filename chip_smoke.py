@@ -1,4 +1,5 @@
-"""Prove the PyTorch port runs on one NVIDIA GPU: build, check, serve, train.
+"""Prove the PyTorch port runs on one NVIDIA GPU: build, check, serve, train,
+plan, train on a mesh and run the examples.
 
     python3 chip_smoke.py
 
@@ -62,7 +63,24 @@ each of which ends the run with a non-zero exit on failure:
    each traced fake and then run for real with DTensor parameters under
    ``use_sharding``. The counted FLOPs must agree within 1%, the peaks
    within a factor of 2, and the sharded train step's loss must equal
-   the unsharded step's.
+   the unsharded step's;
+10. mesh: on a 1x1 CUDA mesh (nccl, a group of one), full-width
+   Qwen2-1.5B cut to 4 layers: its fp32 {params, opt, ef} state placed
+   by the sharding rules (``ckpt.elastic.reshard``), saved, restored
+   with ``restore_elastic(new_mesh=)`` onto a (pod, data, model) mesh
+   and with ``restore(shardings=)``, every leaf bit-equal (write and
+   read GB/s); ``compress_reduce_pod`` the identity with one pod, and
+   ``collective_matmul`` at Qwen2's MLP shape equal to ``torch.matmul``
+   to the bit; one LM100M learner with and without the mesh, whose
+   losses must be equal to the bit (step times beside each other); and
+   phase 8's training program with its learners on the mesh, where the
+   chief's respawn must restore onto the mesh;
+11. examples: every ``repro_torch.examples`` program on the card, each
+   in its own process under its own timeout, all started together:
+   quickstart, mapreduce, parameter_server (cached), evolution
+   strategies (whose fitness must improve), actor_learner, train_lm
+   with ``--mesh 1,1``, and serve_lm at full-width bf16 Qwen2-1.5B,
+   flat and paged, every request served at its length.
 
 Prints JSON lines; the one before the last is the ``{"kernels": ...}``
 record, the last ``{"ok": true, "device": {...}}``. Exits non-zero, and
@@ -1980,6 +1998,7 @@ def _chaos_after_publish():
                     if r["name"] == name and r["load"].get("version"):
                         _TRAIN_CHAOS["kill_step"] = r["load"]["step"]
                         _TRAIN_CHAOS["kill_version"] = r["load"]["version"]
+                        _TRAIN_CHAOS["killed_mesh"] = r["load"].get("mesh")
                         return True
                 return False
             return pred
@@ -1995,6 +2014,7 @@ def _chaos_after_publish():
                                 "start_step"):
                             _TRAIN_CHAOS["restored_start"] = \
                                 load["start_step"]
+                            _TRAIN_CHAOS["restored_mesh"] = load.get("mesh")
                 except Exception:  # noqa: BLE001 - registry stopping
                     pass
                 ctx.wait_for_stop(0.05)
@@ -2002,10 +2022,12 @@ def _chaos_after_publish():
     return ChaosAfterPublish
 
 
-def _train_program(device_line: str) -> dict:
+def _train_program(device_line: str, mesh_shape=None) -> dict:
     """c) ``launch.train.build_program`` on the thread launcher: LM100M,
-    2 learners, the chief killed after its first publish. Returns its
-    kernel launches."""
+    2 learners, the chief killed after its first publish; with
+    ``mesh_shape`` the learners' state on that mesh (phase 10 e), where
+    the respawned chief must restore onto it. Returns its kernel
+    launches."""
     from repro_torch import core as lp
     from repro_torch.ckpt import checkpoint
     from repro_torch.data.pipeline import DataConfig, make_source
@@ -2044,7 +2066,7 @@ def _train_program(device_line: str) -> dict:
         program = lt.build_program(
             cfg, steps=PROGRAM_STEPS, ckpt_dir=store, learners=2,
             publish_every=PROGRAM_PUBLISH_EVERY, kill_after=0.0,
-            registry_ttl_s=3.0, device="cuda")
+            registry_ttl_s=3.0, mesh_shape=mesh_shape, device="cuda")
         tee = _Tee(sys.stdout)
         _reset_launches()
         t0 = time.perf_counter()
@@ -2077,6 +2099,12 @@ def _train_program(device_line: str) -> dict:
         if not restored or lost > PROGRAM_PUBLISH_EVERY:
             fail(f"train program: chief killed at step "
                  f"{_TRAIN_CHAOS['kill_step']} restored from {restored}")
+        want_mesh = (None if mesh_shape is None else
+                     dict(zip(("data", "model"), mesh_shape)))
+        for key in ("killed_mesh", "restored_mesh"):
+            if _TRAIN_CHAOS.get(key) != want_mesh:
+                fail(f"train program: {key} {_TRAIN_CHAOS.get(key)}, not "
+                     f"{want_mesh}")
         like = convert.params_to_numpy(cfg, transformer.init_params(
             cfg, 0, device="cpu", dtype=cfg.param_dtype))
         params = convert.params_from_numpy(
@@ -2095,11 +2123,16 @@ def _train_program(device_line: str) -> dict:
                        if f.is_file()) / 1e9
     finally:
         shutil.rmtree(store, ignore_errors=True)
-    emit({"phase": "train", "run": "training program", "config":
+    emit({"phase": "train" if mesh_shape is None else "mesh",
+          "run": "training program" + (
+              "" if mesh_shape is None else f" on a {mesh_shape} mesh"),
+          "config":
           f"lm100m ({cfg.param_count() / 1e6:.1f} M, bf16 compute, fp32 "
           f"master weights), 2 learners, {PROGRAM_STEPS} steps of 16 x 64 "
           f"tokens, publish every {PROGRAM_PUBLISH_EVERY}, chief killed "
           "after its first publish, registry TTL 3 s",
+          "learner_mesh": want_mesh,
+          "restored_mesh": _TRAIN_CHAOS.get("restored_mesh"),
           "wall_s": wall, "steps_per_s_wall": PROGRAM_STEPS / wall,
           "last_version": last, "kill_step": _TRAIN_CHAOS["kill_step"],
           "restored_from": restored, "steps_lost": lost,
@@ -2337,6 +2370,370 @@ def phase_plan(device_line: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 10. mesh training: the elastic restore, the pod reduce, the collective
+#     matmul and the mesh learners, on a 1x1 CUDA mesh
+# ---------------------------------------------------------------------------
+
+# a) Qwen2-1.5B's full width, its depth cut to 4 layers: its {params,
+# opt, ef} state in fp32 (~6.7 GB) saved from one mesh, restored onto a
+# mesh of other axis names.
+MESH_LAYERS = 4
+# c) the collective matmul at Qwen2's MLP shape: B 8 x S 1024, D 1536 ->
+# F 8960, bf16.
+CM_B, CM_S, CM_D, CM_F = 8, 1024, 1536, 8960
+# d) one LM100M learner with and without a mesh, the same seed and data.
+MESH_LEARNER_STEPS = 6
+
+
+def _mesh_state(cfg) -> dict:
+    """{params, opt, ef} on the card in fp32: the seeded init's weights,
+    and seeded moments and residual (a restore of zeros must not pass)."""
+    from repro_torch.models import transformer
+    from repro_torch.train import tree
+    params = transformer.init_params(cfg, 0, device="cuda",
+                                     dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def noise(positive=False):
+        def one(t):
+            x = torch.randn(t.shape, generator=gen, device="cuda")
+            return x.abs_() if positive else x
+        return tree.tree_map(one, params)
+
+    return {"params": params,
+            "opt": {"m": noise(), "v": noise(positive=True),
+                    "step": torch.tensor(7, dtype=torch.int32)},
+            "ef": noise()}
+
+
+def _on_mesh_bit_equal(label, got, want, mesh) -> int:
+    """Every leaf of ``got`` a DTensor on ``mesh`` at the rules'
+    placements whose full value equals ``want``'s leaf to the bit.
+    Returns the leaf count."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding.rules import (path_str, placements,
+                                            spec_for_path)
+    from repro_torch.train import tree
+    n = 0
+    for (path, a), b in zip(tree.leaves_with_path(got), tree.leaves(want)):
+        name = path_str(path)
+        if not isinstance(a, DTensor) or a.device_mesh is not mesh:
+            fail(f"mesh: {label}: {name} is not on the mesh")
+        if tuple(a.placements) != placements(
+                mesh, spec_for_path(name, tuple(b.shape), mesh)):
+            fail(f"mesh: {label}: {name} placed {a.placements}")
+        full = a.full_tensor()
+        if full.dtype != b.dtype or not torch.equal(full, b.to(full.device)):
+            fail(f"mesh: {label}: {name} differs from the original")
+        n += 1
+    if n != len(tree.leaves(want)):
+        fail(f"mesh: {label}: {n} leaves of {len(tree.leaves(want))}")
+    return n
+
+
+def _mesh_restore(device_line: str) -> None:
+    """a) place, save, restore onto ("pod", "data", "model"); b) restore
+    with ``shardings=``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.ckpt.elastic import reshard, restore_elastic
+    from repro_torch.sharding.compat import make_mesh
+    from repro_torch.sharding.rules import param_sharding
+    from repro_torch.train import tree
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
+                              num_layers=MESH_LAYERS)
+    state = _mesh_state(cfg)
+    nbytes = sum(t.numel() * t.element_size() for t in tree.leaves(state))
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+    store = _store_dir(int(1.2 * nbytes))
+    try:
+        d = os.path.join(store, "state")
+        t0 = time.perf_counter()
+        placed = reshard(state, mesh)
+        torch.cuda.synchronize()
+        reshard_s = time.perf_counter() - t0
+        _on_mesh_bit_equal("reshard", placed, state, mesh)
+        t0 = time.perf_counter()
+        checkpoint.save(placed, d)
+        write_s = time.perf_counter() - t0
+        del placed
+        t0 = time.perf_counter()
+        got = restore_elastic(d, like=state, new_mesh=mesh3)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        n = _on_mesh_bit_equal("restore_elastic", got, state, mesh3)
+        del got
+        _collect()
+        t0 = time.perf_counter()
+        got = checkpoint.restore(d, like=state,
+                                 shardings=param_sharding(state, mesh))
+        torch.cuda.synchronize()
+        read2_s = time.perf_counter() - t0
+        _on_mesh_bit_equal("restore(shardings=)", got, state, mesh)
+        del got
+        disk = sum(f.stat().st_size for f in Path(d).rglob("*")
+                   if f.is_file())
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "mesh", "run": "elastic restore", "config":
+          f"qwen2-1.5b full width, {MESH_LAYERS} layers "
+          f"({cfg.param_count() / 1e6:.1f} M), fp32 params, seeded "
+          "moments and residual; saved from a 1x1 (data, model) CUDA "
+          "mesh, restored onto 1x1x1 (pod, data, model) and with "
+          "shardings= onto 1x1; read right after the write (page cache)",
+          "leaves": n, "state_gb": nbytes / 1e9, "disk_gb": disk / 1e9,
+          "reshard_s": reshard_s, "write_s": write_s,
+          "write_gb_per_s": nbytes / write_s / 1e9,
+          "restore_elastic_s": read_s,
+          "restore_elastic_gb_per_s": nbytes / read_s / 1e9,
+          "restore_shardings_s": read2_s,
+          "restore_shardings_gb_per_s": nbytes / read2_s / 1e9,
+          "bit_equal": True, "device": device_line})
+    del state
+    _collect()
+
+
+def _mesh_collectives(device_line: str) -> None:
+    """c) the pod reduce is the identity without a second pod; the
+    collective matmul equals ``torch.matmul`` to the bit at TP 1."""
+    from repro_torch.sharding.collective_matmul import collective_matmul
+    from repro_torch.sharding.compat import make_mesh
+    from repro_torch.train.grad_compression import compress_reduce_pod
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    grads = {"w": torch.randn((CM_D, CM_F), generator=gen, device="cuda")}
+    for m in (mesh, mesh3):
+        for method in ("int8_ef", "bf16"):
+            red, err = compress_reduce_pod(grads, None, m, method=method)
+            if red is not grads or err is not None:
+                fail(f"mesh: compress_reduce_pod on {tuple(m.shape)} "
+                     f"{method} is not the identity")
+    x = torch.randn((CM_B, CM_S, CM_D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    w = torch.randn((CM_D, CM_F), generator=gen, device="cuda",
+                    dtype=torch.bfloat16) * CM_D ** -0.5
+    y = collective_matmul(x, w, mesh)
+    ref = torch.matmul(x, w)
+    if y.shape != ref.shape or not torch.equal(y.full_tensor(), ref):
+        fail("mesh: collective_matmul differs from torch.matmul")
+    cm_ms = _time_ms(lambda: collective_matmul(x, w, mesh), iters=20)
+    mm_ms = _time_ms(lambda: torch.matmul(x, w), iters=20)
+    flops = 2 * CM_B * CM_S * CM_D * CM_F
+    emit({"phase": "mesh", "run": "pod reduce and collective matmul",
+          "config": f"compress_reduce_pod on 1x1 and 1x1x1 CUDA meshes "
+          f"(int8_ef, bf16): identity; collective_matmul B {CM_B} x S "
+          f"{CM_S}, D {CM_D} -> F {CM_F}, bf16, 1x1 mesh",
+          "pod_reduce_identity": True, "matmul_bit_equal": True,
+          "collective_matmul_ms": cm_ms, "torch_matmul_ms": mm_ms,
+          "bound_ms": max(flops / PEAK_FLOPS_PER_S[torch.bfloat16],
+                          2 * (x.numel() + w.numel() + ref.numel())
+                          / HBM_BYTES_PER_S) * 1e3,
+          "device": device_line})
+    del x, w, y, ref, grads
+    _collect()
+
+
+def _mesh_learner(device_line: str) -> None:
+    """d) one LM100M learner through ``launch.train.build_program``,
+    without and with a 1x1 mesh: each step's loss must be equal to the
+    bit; each chief step timed to a synchronize."""
+    from repro_torch import core as lp
+    from repro_torch.launch import train as lt
+    from repro_torch.train import fabric
+    cfg = lt.LM100M
+    runs = {}
+    step = fabric.LearnerWorker._chief_step
+    for mesh_shape in (None, (1, 1)):
+        rec = []
+
+        def timed(self, ctx, rec=rec):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stepped = step(self, ctx)
+            torch.cuda.synchronize()
+            if stepped:
+                rec.append((self._step, self._loss,
+                            time.perf_counter() - t0))
+            return stepped
+
+        store = _store_dir(int(4 * 4 * cfg.param_count() * 1.5))
+        fabric.LearnerWorker._chief_step = timed
+        try:
+            program = lt.build_program(
+                cfg, steps=MESH_LEARNER_STEPS, ckpt_dir=store,
+                learners=1, publish_every=MESH_LEARNER_STEPS,
+                with_eval=False, mesh_shape=mesh_shape, device="cuda")
+            lp.launch_and_wait(program, timeout_s=600)
+        finally:
+            fabric.LearnerWorker._chief_step = step
+            shutil.rmtree(store, ignore_errors=True)
+        if [r[0] for r in rec] != list(range(1, MESH_LEARNER_STEPS + 1)):
+            fail(f"mesh learner {mesh_shape}: steps {[r[0] for r in rec]}")
+        runs[mesh_shape] = rec
+        del program
+        _collect()
+    plain = [r[1] for r in runs[None]]
+    meshed = [r[1] for r in runs[(1, 1)]]
+    if plain != meshed or not all(np.isfinite(plain)):
+        fail(f"mesh learner: losses {meshed} on the mesh vs {plain}")
+    emit({"phase": "mesh", "run": "learner with and without a mesh",
+          "config": f"lm100m ({cfg.param_count() / 1e6:.1f} M), one "
+          f"learner, {MESH_LEARNER_STEPS} steps of 16 x 64 tokens, seed 0, "
+          "wire chosen by size, plain vs a 1x1 (data, model) CUDA mesh",
+          "losses": plain, "losses_bit_equal": True,
+          "step_s_plain": [r[2] for r in runs[None]],
+          "step_s_mesh": [r[2] for r in runs[(1, 1)]],
+          # step 1 warms up; the last step publishes the version
+          "step_s_median_2_to_5_plain":
+              float(np.median([r[2] for r in runs[None]][1:-1])),
+          "step_s_median_2_to_5_mesh":
+              float(np.median([r[2] for r in runs[(1, 1)]][1:-1])),
+          "device": device_line})
+
+
+def phase_mesh(device_line: str) -> dict:
+    """Returns the mesh training program's launches, by path name."""
+    import torch.distributed as dist
+    _mesh_restore(device_line)
+    _mesh_collectives(device_line)
+    _mesh_learner(device_line)
+    run = _train_program(device_line, mesh_shape=(1, 1))
+    dist.destroy_process_group()
+    return {"train program lm100m, 1x1 mesh": run}
+
+
+# ---------------------------------------------------------------------------
+# 11. the examples, each in a process of its own
+# ---------------------------------------------------------------------------
+
+# Runs ``repro_torch.examples.<name>.main(argv)`` and prints the kernel
+# launches of the run as its last line.
+_EXAMPLE_DRIVER = """
+import importlib, json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import (decode_attention, flash_attention,
+                                 rglru_scan, ssm_scan)
+mods = (decode_attention, flash_attention, rglru_scan, ssm_scan)
+for m in mods:
+    m.reset_launches()
+importlib.import_module("repro_torch.examples." + sys.argv[2]).main(
+    sys.argv[3:])
+import torch
+torch.cuda.synchronize()
+run = {}
+for m in mods:
+    run.update(m.launches)
+print("LAUNCHES " + json.dumps(run), flush=True)
+"""
+EXAMPLE_TIMEOUT_S = 300
+
+
+def _examples(tmp: str) -> list[tuple]:
+    """(label, module, argv, check(stdout) -> error or None)."""
+    ckpt = os.path.join(tmp, "train_lm")
+    meters = {k: os.path.join(tmp, f"serve_{k}.json")
+              for k in ("flat", "paged")}
+
+    def has(text):
+        return lambda out: None if text in out else f"no {text!r}"
+
+    def improves(out):
+        first = re.search(r"gen +0: mean fitness +(-?[0-9.]+)", out)
+        final = re.search(r"final fitness at mean: (-?[0-9.]+)", out)
+        if not (first and final):
+            return "no fitness lines"
+        if not float(final.group(1)) > float(first.group(1)):
+            return f"fitness {final.group(1)} after {first.group(1)}"
+        return None
+
+    def trained(out):
+        from repro_torch.ckpt.checkpoint import CheckpointManager
+        last = CheckpointManager(ckpt).latest_step()
+        return None if last == 12 else f"last step {last}, not 12"
+
+    def served(key):
+        def check(out):
+            with open(meters[key]) as f:
+                summary = json.load(f)
+            if summary["count"] != 6 or summary["out_lens"] != [16] * 6:
+                return f"served {summary['count']}: {summary['out_lens']}"
+            return None
+        return check
+
+    serve = ["--full", "--clients", "2", "--requests", "3"]
+    return [
+        ("quickstart", "quickstart", [], has("total 190")),
+        ("mapreduce", "mapreduce", [], has("word total: 420 (expected 420)")),
+        ("parameter_server cached", "parameter_server",
+         ["--mode", "cached", "--requesters", "4", "--seconds", "1"],
+         has("total QPS")),
+        ("evolution_strategies", "evolution_strategies",
+         ["--evaluators", "6", "--generations", "15"], improves),
+        ("actor_learner", "actor_learner", ["--actors", "2", "--steps", "20"],
+         has("chief done: step=20")),
+        ("train_lm --mesh 1,1", "train_lm",
+         ["--preset", "tiny", "--steps", "12", "--mesh", "1,1",
+          "--publish-every", "4", "--ckpt-dir", ckpt], trained),
+        ("serve_lm flat", "serve_lm",
+         serve + ["--meter-json", meters["flat"]], served("flat")),
+        ("serve_lm paged ps=16", "serve_lm",
+         serve + ["--page-size", "16", "--meter-json", meters["paged"]],
+         served("paged")),
+    ]
+
+
+def phase_examples(device_line: str) -> dict:
+    """Every example on the card at small arguments, all started
+    together, each under its own timeout. Returns the launches of each
+    run that launched a kernel, by path name."""
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = _examples(tmp)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _EXAMPLE_DRIVER, str(SRC), mod, *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=tmp) for _, mod, argv, _ in cases]
+        try:
+            outs = [p.communicate(timeout=EXAMPLE_TIMEOUT_S) for p in procs]
+        except subprocess.TimeoutExpired:
+            fail("examples: a run outlived its timeout of "
+                 f"{EXAMPLE_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        for (label, mod, argv, check), p, (out, err) in zip(cases, procs,
+                                                              outs):
+            if p.returncode != 0:
+                print(err[-4000:], file=sys.stderr, flush=True)
+                fail(f"examples: {label} exited {p.returncode}")
+            problem = check(out)
+            if problem:
+                fail(f"examples: {label}: {problem}")
+            run = json.loads(out.strip().splitlines()[-1].split(" ", 1)[1])
+            run = {name: run[name] for name in KERNEL_NAMES}
+            if any(run.values()):
+                paths[f"example {label}"] = run
+            emit({"phase": "examples", "run": label,
+                  "argv": ["python", "-m", f"repro_torch.examples.{mod}",
+                           *argv], "launches": run, "device": device_line})
+    if not paths.get("example serve_lm paged ps=16", {}).get(
+            "paged_decode_attention"):
+        fail("examples: serve_lm --page-size launched no K2")
+    if not paths.get("example serve_lm flat", {}).get("decode_attention"):
+        fail("examples: serve_lm launched no K1")
+    emit({"phase": "examples", "run": "all", "wall_s": wall,
+          "device": device_line})
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2351,16 +2748,19 @@ def main(argv=None) -> int:
     env = phase_environment()
     phase_build()
     records = phase_kernels()
-    # Launches on the main path: the engine runs of phases 4-7 and the
-    # training program of phase 8, each path's counters reset just before
-    # its run and read just after. ``launches`` is their sum;
+    # Launches on the main path: the engine runs of phases 4-7, the
+    # training programs of phases 8 and 10, the sharded prefill of phase 9
+    # and the examples of phase 11, each path's counters reset just
+    # before its run and read just after. ``launches`` is their sum;
     # ``launches_by_path`` splits it.
     paths = {**phase_parity(env["nvidia_smi"]),
              **phase_serve(env["nvidia_smi"]),
              **phase_fabric(env["nvidia_smi"]),
              **phase_families(env["nvidia_smi"]),
              **phase_train(env["nvidia_smi"]),
-             **phase_plan(env["nvidia_smi"])}
+             **phase_plan(env["nvidia_smi"]),
+             **phase_mesh(env["nvidia_smi"]),
+             **phase_examples(env["nvidia_smi"])}
     for r in records:
         r["launches_by_path"] = {path: run[r["name"]]
                                  for path, run in paths.items()}

@@ -23,8 +23,15 @@ readable manifest). Durable saves (``save(..., durable=True)``, used by
 published atomically with metadata, replicas load them by id, and GC
 never collects a version a live replica reports serving (``retain_fn``).
 
-There is one device here, so ``shardings=`` has no meaning yet: passing
-it raises ``ValueError``.
+Device meshes: a DTensor leaf is saved as its full logical value
+(``full_tensor()``, a collective that every rank of its mesh calls, in
+the same leaf order). Every rank then writes the same directory, which
+the overwrite dance below makes safe (last writer wins); a rank that
+restores what another rank saves must wait for that save to land (a
+``dist.barrier()`` after it). On restore, ``shardings=`` (``sharding.rules.param_sharding``'s tree of
+``(mesh, placements)``, or a flat {name: (mesh, placements)} dict)
+distributes each leaf onto its mesh. The bytes on disk are the same
+either way, so a tree saved from a mesh restores in both packages.
 """
 
 from __future__ import annotations
@@ -39,20 +46,26 @@ from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.courier.serialization import tensor_as_numpy
+from repro_torch.sharding.rules import distribute, full
 
-_NO_SHARDINGS = ("shardings= places leaves on a device mesh, which the "
-                 "port does not have yet (ROADMAP.md queue item Q7)")
+
+def _is_sharding(x) -> bool:
+    """A ``(mesh, placements)`` pair: a leaf of a shardings tree."""
+    return (isinstance(x, tuple) and len(x) == 2
+            and isinstance(x[0], DeviceMesh))
 
 
 def _flatten(tree, prefix: tuple = ()) -> list[tuple[str, Any]]:
     """(``/``-joined key path, leaf) pairs in ``jax.tree_util`` order:
-    dict keys sorted, sequences by index; ``None`` is an empty subtree."""
+    dict keys sorted, sequences by index; ``None`` is an empty subtree;
+    a ``(mesh, placements)`` pair is one leaf."""
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
                 for kv in _flatten(tree[k], prefix + (str(k),))]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not _is_sharding(tree):
         return [kv for i, v in enumerate(tree)
                 for kv in _flatten(v, prefix + (str(i),))]
     if tree is None:
@@ -85,7 +98,9 @@ def _tree_map(fn, tree) -> Any:
 
 def _host(leaf, copy: bool = False) -> np.ndarray:
     """The leaf as a host numpy array (``copy``: never aliasing a CPU
-    tensor that may be mutated in place later)."""
+    tensor that may be mutated in place later). A DTensor is gathered to
+    its full value first: a collective over its mesh."""
+    leaf = full(leaf)
     if isinstance(leaf, torch.Tensor):
         return tensor_as_numpy(leaf.detach().to("cpu", copy=copy))
     return np.asarray(leaf)
@@ -204,14 +219,17 @@ def _load_leaf(directory: str, entry: dict) -> np.ndarray:
     return arr
 
 
+def as_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host array as a CPU tensor (a bf16 array through its bits)."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _cast_like(arr: np.ndarray, ref) -> Any:
     """``arr`` in the type, dtype (and, for a tensor, device) of ``ref``."""
     if isinstance(ref, torch.Tensor):
-        if arr.dtype.name == "bfloat16":
-            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr)
-        return t.to(device=ref.device, dtype=ref.dtype)
+        return as_tensor(arr).to(device=ref.device, dtype=ref.dtype)
     return arr.astype(np.asarray(ref).dtype, copy=False)
 
 
@@ -221,32 +239,42 @@ def restore(directory: str, like=None, shardings=None,
     tuples whose leaves are numpy arrays or tensors), returns that
     structure, each leaf cast to its ``like`` leaf's dtype (a tensor leaf
     comes back as a tensor on the ``like`` leaf's device); otherwise
-    returns a flat {name: array} dict. A leaf missing from the checkpoint
-    or of another shape raises.
+    returns a flat {name: array} dict. ``shardings`` (a tree like
+    ``like``'s, or a flat dict, of ``(mesh, placements)``) distributes
+    each leaf it names onto its mesh (every rank of the mesh restores the
+    same directory); naming a leaf that ``like`` lacks raises. A leaf
+    missing from the checkpoint or of another shape raises.
 
     ``fill_missing=True`` substitutes ``like``'s own leaf for any name the
     checkpoint lacks instead of raising.
     """
-    if shardings is not None:
-        raise ValueError(_NO_SHARDINGS)
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
     flat = {e["name"]: _load_leaf(directory, e) for e in manifest}
     if like is None:
         return flat
-    leaves = []
-    for name, ref in _flatten(like):
+    shard_named = dict(_flatten(shardings)) if shardings is not None else {}
+    named = _flatten(like)
+    unknown = sorted(set(shard_named) - {name for name, _ in named})
+    if unknown:
+        raise KeyError(f"shardings name leaves that like lacks: {unknown}")
+    leaves = {}
+    for name, ref in named:
         if name not in flat:
             if fill_missing:
-                leaves.append(ref)
+                leaves[name] = ref
                 continue
             raise KeyError(f"checkpoint missing leaf {name!r}")
         arr = flat[name]
         if tuple(arr.shape) != tuple(np.shape(ref)):
             raise ValueError(f"{name}: ckpt shape {arr.shape} != "
                              f"{tuple(np.shape(ref))}")
-        leaves.append(_cast_like(arr, ref))
-    return _unflatten(like, leaves)
+        leaves[name] = _cast_like(arr, ref)
+    placed = distribute(
+        {n: leaves[n] if isinstance(leaves[n], torch.Tensor)
+         else as_tensor(np.asarray(leaves[n])) for n in shard_named},
+        shard_named)
+    return _unflatten(like, [placed.get(n, leaves[n]) for n, _ in named])
 
 
 class CheckpointManager:

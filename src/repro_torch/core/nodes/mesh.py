@@ -1,18 +1,26 @@
 """MeshWorkerNode: a device worker as a Launchpad service.
 
 The Launchpad graph is the *control plane*; inside a MeshWorkerNode the
-*data plane* is PyTorch computation on one device. The node behaves like a
-CourierNode (deferred constructor, courier handle), and the wrapped class
-receives ``device=<torch.device>`` as a keyword argument, taken from the
-resource group's requirements, else from the node's own ``device=``
-argument, else ``"cuda"``::
+*data plane* is PyTorch computation on a device, or over a device mesh.
+The node behaves like a CourierNode (deferred constructor, courier
+handle). When the resource group's requirements carry a mesh geometry,
+the wrapped class receives ``mesh=<DeviceMesh>`` as a keyword argument::
 
     with p.group('learner'):
         learner = p.add_node(MeshWorkerNode(Learner, replay, ckpt_dir))
+    launcher.launch(p, resources={
+        'learner': {'mesh': (1, 1), 'axes': ('data', 'model')}})
+
+Otherwise it receives ``device=<torch.device>``, taken from the
+requirements' ``device``, else from the node's own ``device=`` argument,
+else ``"cuda"``::
+
     launcher.launch(p, resources={'learner': {'device': 'cuda:1'}})
 
-The name is kept from the JAX package, whose node builds a device mesh
-here; a multi-device (sharded) worker is later work.
+The mesh's device type follows the same choice ("cuda": nccl, "cpu":
+gloo). A torch mesh spans one process per device in one process group:
+a mesh of one device starts its own group, a larger one needs its
+processes' group first, and a mesh larger than the group raises.
 """
 
 from __future__ import annotations
@@ -27,20 +35,28 @@ from repro_torch.core.nodes.python import CourierHandle, _construct
 
 class _MeshExecutable(Executable):
     def __init__(self, name: str, cls, args, kwargs, address: Address,
-                 device: str):
+                 device: str, mesh=None):
         self.name = name
         self._cls, self._args, self._kwargs = cls, args, kwargs
         self._address = address
         self._device = device
+        self._mesh = mesh                # (shape, axes) or None
+
+    def _placement(self) -> dict:
+        import torch
+        if self._mesh is None:
+            return {"device": torch.device(self._device)}
+        from repro_torch.sharding.compat import make_mesh
+        shape, axes = self._mesh
+        return {"mesh": make_mesh(shape, axes,
+                                  torch.device(self._device).type)}
 
     def run(self, context: WorkerContext) -> None:
-        import torch
-
         from repro_torch.core import courier
         context.endpoint = self._address.endpoint
         set_current_context(context)
         obj = _construct(self._cls, self._args,
-                         dict(self._kwargs, device=torch.device(self._device)))
+                         dict(self._kwargs, **self._placement()))
         endpoint = self._address.endpoint
         # Dual endpoints (shm://name+grpc://host:port from ProcessLauncher)
         # serve every advertised scheme, same as _CourierExecutable.
@@ -72,7 +88,7 @@ class _MeshExecutable(Executable):
 
 
 class MeshWorkerNode(Node):
-    """A CourierNode whose service runs on one torch device."""
+    """A CourierNode whose service runs on a torch device or mesh."""
 
     DEFAULT_DEVICE = "cuda"
 
@@ -97,5 +113,12 @@ class MeshWorkerNode(Node):
         device = str(reqs.get("device",
                               self._kwargs.get("device", self.DEFAULT_DEVICE)))
         kwargs = {k: v for k, v in self._kwargs.items() if k != "device"}
+        mesh = None
+        if "mesh" in reqs:
+            shape = tuple(reqs["mesh"])
+            axes = tuple(reqs.get("axes", ("data", "model")[:len(shape)]))
+            if len(shape) != len(axes):
+                raise ValueError(f"mesh shape {shape} / axes {axes} mismatch")
+            mesh = (shape, axes)
         return [_MeshExecutable(self.name, self._cls, self._args, kwargs,
-                                self._address, device)]
+                                self._address, device, mesh)]

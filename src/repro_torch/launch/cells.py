@@ -30,7 +30,8 @@ from repro_torch.roofline import analysis, hw
 from repro_torch.serve import decode as serve_lib
 from repro_torch.sharding import ShardingCtx, use_sharding
 from repro_torch.sharding.compat import mesh_sizes
-from repro_torch.sharding.rules import (batch_spec, fit_spec, param_sharding,
+from repro_torch.sharding.rules import (batch_shardings, batch_spec,
+                                        fit_spec, param_sharding,
                                         placements)
 from repro_torch.train import tree
 from repro_torch.train.optimizer import OptimizerConfig
@@ -116,15 +117,6 @@ def plan_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
 def _dp(mesh):
     axes = dp_axes(mesh)
     return axes if len(axes) > 1 else axes[0]
-
-
-def batch_shardings(mesh, batch_tree):
-    def leaf(x):
-        spec = batch_spec(mesh, x.dim()) if x.dim() else ()
-        # Divisibility fit: long_500k has global_batch=1, so it stays
-        # replicated.
-        return mesh, placements(mesh, fit_spec(mesh, x.shape, tuple(spec)))
-    return tree.tree_map(leaf, batch_tree)
 
 
 def state_shardings(mesh, state_tree):

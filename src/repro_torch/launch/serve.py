@@ -375,9 +375,12 @@ class Client:
 
     def __init__(self, batcher, meter, num_requests: int, prompt_len: int,
                  vocab: int, seed: int, window: int = 4, source: str = "",
-                 trace_every: int = 0):
+                 trace_every: int = 0, gate=None):
         self._batcher = batcher
         self._meter = meter
+        # A node whose ``armed()`` must be true before the first request
+        # (the failover demo's fault injector).
+        self._gate = gate
         self._n = num_requests
         self._rng = np.random.default_rng(seed)
         self._plen = prompt_len
@@ -398,6 +401,8 @@ class Client:
     def run(self):
         pending: list[tuple] = []
         records: list[tuple[float, int]] = []
+        while self._gate is not None and not self._gate.armed():
+            time.sleep(0.002)
 
         def drain_one():
             t0, prompt, fut, trace = pending.pop(0)
@@ -440,6 +445,27 @@ class Client:
         self._meter.batch_call(
             [("record", (lat, out_len), {"source": self._source})
              for lat, out_len in records])
+
+
+class ArmedFaultInjector(lp.FaultInjector):
+    """The failover demo's ``FaultInjector``, served as a courier node so
+    that clients can wait for it: ``armed()`` is true once its poll loop
+    runs. Without the wait, clients started before the injector could
+    serve every request first, and a count-triggered kill would never
+    fire (or fire after the run)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._armed = threading.Event()
+
+    def armed(self) -> bool:
+        return self._armed.is_set()
+
+    def run(self) -> None:
+        self._armed.set()
+        super().run()
+        # Serve ``armed()`` to late clients until the program stops.
+        lp.get_current_context().wait_for_stop()
 
 
 def _summary(lat_ms: list[float]) -> dict:
@@ -636,26 +662,28 @@ def build_program(model_cfg: ModelConfig, *, num_clients=3,
             router_nodes.append(node)
     meter = p.add_node(lp.CourierNode(Meter, total, summary_path=meter_json,
                                       holds=1 if rollout is not None else 0))
+    chaos = None
+    if kill_after is not None:
+        with p.group("chaos"):
+            chaos = p.add_node(lp.CourierNode(
+                ArmedFaultInjector,
+                [lp.FaultEvent(kind="kill", target=0,
+                               after_served=kill_after)],
+                [replica_handles[0]], progress=list(router_handles)))
     with p.group("client"):
         for i in range(num_clients):
             m = i % routers
             p.add_node(lp.CourierNode(
                 Client, router_handles[m], meter, requests_per_client,
                 prompt_len, model_cfg.vocab_size, seed=i,
-                source=router_nodes[m].name, trace_every=trace_every))
+                source=router_nodes[m].name, trace_every=trace_every,
+                gate=chaos))
     if telemetry_dir is not None:
         with p.group("telemetry"):
             p.add_node(lp.PyNode(
                 lp.TelemetryHub, registry,
                 targets=list(router_handles) + [meter, registry],
                 poll_s=max(heartbeat_s, 0.1), out_dir=telemetry_dir))
-    if kill_after is not None:
-        with p.group("chaos"):
-            p.add_node(lp.PyNode(
-                lp.FaultInjector,
-                [lp.FaultEvent(kind="kill", target=0,
-                               after_served=kill_after)],
-                [replica_handles[0]], progress=list(router_handles)))
     if rollout is not None:
         with p.group("rollout"):
             p.add_node(lp.PyNode(RolloutDriver, registry,
@@ -757,6 +785,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b",
                     help="architecture; its reduced config is served")
+    ap.add_argument("--full", action="store_true",
+                    help="serve the architecture's full config instead")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu on request)")
     ap.add_argument("--clients", type=int, default=3)
@@ -792,7 +822,8 @@ def main(argv=None):
     ap.add_argument("--trace-every", type=int, default=0, metavar="N",
                     help="trace every Nth request per client (0 = off)")
     args = ap.parse_args(argv)
-    cfg = configs.get_reduced(args.arch)
+    cfg = (configs.get(args.arch) if args.full
+           else configs.get_reduced(args.arch))
     store_dir, model_version, rollout = args.store, None, None
     if args.rollout_after is not None:
         import tempfile

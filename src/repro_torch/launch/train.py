@@ -19,8 +19,15 @@ attention (the kernels have no backward pass); the evaluator scores
 published versions under ``torch.no_grad()`` with ``impl="auto"``,
 which on the card is the prefill flash-attention kernel (K3). Versions
 are published in the JAX package's layout, so either package's learners
-and evaluators read the other's. ``--mesh`` waits for the port of
-``sharding/`` (ROADMAP.md Q7).
+and evaluators read the other's. ``--mesh 1,1`` places every learner's
+state on a ``("data", "model")`` DeviceMesh of the node's device type
+(nccl on the card, gloo with ``--device cpu``): one mesh, built once by
+the supervisor and shared by its learner threads. A torch mesh spans
+one process per device and this program runs in one process, so its
+mesh is 1x1: a larger one raises ("mesh (2, 1) needs 2 devices, the
+process group has 1"). A mesh of N devices is N processes in one group,
+each building ``LearnerWorker(mesh=)`` itself and stepping it on the
+same batches, as ``tests/test_torch_distributed.py`` does on two.
 
 The learner is a *stateful node in the paper-§6 sense*: on restart it
 restores from the latest published version and continues; data nodes and
@@ -33,6 +40,7 @@ the evaluator are stateless and just restart.
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \
         --arch qwen2-1.5b
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --mesh 1,1
 """
 
 from __future__ import annotations
@@ -50,13 +58,11 @@ from repro_torch.data.pipeline import DataConfig, Prefetcher, make_source
 from repro_torch.models import convert, transformer
 from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.serve.engine import resolve_device
+from repro_torch.sharding.compat import check_mesh, make_mesh
 from repro_torch.train.fabric import (ChaosNode, FabricConfig, LearnerWorker,
                                       ThreadWorkerSpawner, TrainSupervisor)
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_step import TrainConfig, make_grad_fn, to_device
-
-_NO_MESH = ("--mesh / mesh_shape places learners on a device mesh, which "
-            "waits for the port of sharding/ (ROADMAP.md Q7)")
 
 # A self-contained ~100M-param preset (brief: "train ~100M model").
 LM100M = ModelConfig(
@@ -130,8 +136,8 @@ class FleetSupervisor:
 
     def __init__(self, registry, data_nodes, model_cfg: ModelConfig,
                  train_cfg: TrainConfig, fab_cfg: FabricConfig,
-                 store_dir: str, learners: int = 1, device="cuda",
-                 spawn_grace_s: float = 30.0):
+                 store_dir: str, learners: int = 1, mesh_shape=None,
+                 device="cuda", spawn_grace_s: float = 30.0):
         self._registry = registry
         self._data = list(data_nodes)
         self._task = LMTask(model_cfg, train_cfg, device)
@@ -139,11 +145,22 @@ class FleetSupervisor:
         self._fab_cfg = fab_cfg
         self._store_dir = store_dir
         self._learners = learners
+        self._mesh_shape = mesh_shape
         self._spawn_grace_s = spawn_grace_s
+
+    def _make_mesh(self):
+        """The learners' mesh, on the supervisor's device type: built
+        once, before any learner starts, and shared by them all."""
+        if self._mesh_shape is None:
+            return None
+        names = ("data", "model")[: len(self._mesh_shape)]
+        return make_mesh(tuple(self._mesh_shape), names,
+                         resolve_device(self._device).type)
 
     def run(self):
         spawner = ThreadWorkerSpawner()
         n_learners = self._learners
+        mesh = self._make_mesh()
 
         def spawn_fn(name: str):
             idx = int(name.rsplit("-", 1)[1])
@@ -153,7 +170,7 @@ class FleetSupervisor:
             spawner.spawn(name, lambda n, ep: LearnerWorker(
                 self._task, batch_fn, self._store_dir, self._registry,
                 self._fab_cfg, name=n, chief=(idx == 0),
-                device=self._device, endpoint=ep))
+                device=self._device, mesh=mesh, endpoint=ep))
 
         sup = TrainSupervisor(
             self._registry, spawn_fn, expected={"learner": n_learners},
@@ -223,10 +240,11 @@ def build_program(model_cfg: ModelConfig, *, steps: int, ckpt_dir: str,
                   registry_ttl_s: float = 10.0,
                   heartbeat_s: float = 0.2, device="cuda") -> lp.Program:
     """The training topology on ``device`` (a CUDA card must exist unless
-    ``device="cpu"``)."""
-    if mesh_shape is not None:
-        raise ValueError(_NO_MESH)
+    ``device="cpu"``), its learners on a ``mesh_shape`` mesh when one is
+    given (a mesh larger than the process group raises here)."""
     resolve_device(device)
+    if mesh_shape is not None:
+        check_mesh(mesh_shape)
     data_cfg = DataConfig(seq_len=seq_len,
                           batch_size=batch_size // num_data_nodes,
                           vocab_size=model_cfg.vocab_size)
@@ -248,7 +266,8 @@ def build_program(model_cfg: ModelConfig, *, steps: int, ckpt_dir: str,
     with p.group("supervisor"):
         p.add_node(lp.PyNode(FleetSupervisor, registry, data, model_cfg,
                              train_cfg, fab_cfg, ckpt_dir,
-                             learners=learners, device=device))
+                             learners=learners, mesh_shape=mesh_shape,
+                             device=device))
     if kill_after is not None:
         with p.group("chaos"):
             p.add_node(lp.PyNode(
@@ -281,8 +300,8 @@ def main(argv=None):
                          "seconds in; the supervisor restores it from the "
                          "last published version")
     ap.add_argument("--mesh", default=None,
-                    help="e.g. 2,1 -> data=2,model=1 (not ported yet: "
-                         "ROADMAP.md Q7)")
+                    help="e.g. 1,1 -> data=1,model=1: the learners' "
+                         "DeviceMesh; this one process spans 1x1 only")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; needs a card) or cpu")
     args = ap.parse_args(argv)

@@ -17,14 +17,14 @@ not linked with support for cuda devices"), so there the mesh is of
 (``impl="flash"``) rather than reading it off the device. It never runs
 real work; this module is the only one that imports the fake backend.
 
-``shard_map`` has no counterpart here: its one user in the JAX package,
-``collective_matmul``, is not ported yet.
+``shard_map`` has no counterpart: the port's ``collective_matmul`` runs
+on each rank's local shards and talks over one axis's process group
+(``axis_group``).
 """
 
 from __future__ import annotations
 
 import math
-import socket
 from typing import Sequence
 
 import torch
@@ -32,12 +32,6 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 _FAKE = "fake"
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _group_backend() -> str:
@@ -50,23 +44,33 @@ def _drop_fake_group() -> None:
         dist.destroy_process_group()
 
 
+def check_mesh(axis_shapes: Sequence[int]) -> None:
+    """Raise ``RuntimeError`` when a real mesh of ``axis_shapes`` needs
+    more devices than this process's group spans: the running group's
+    world size, else 1 (``make_mesh`` starts a group of one)."""
+    n_need = math.prod(axis_shapes)
+    n_have = (dist.get_world_size()
+              if dist.is_initialized() and _group_backend() != _FAKE else 1)
+    if n_have < n_need:
+        raise RuntimeError(
+            f"mesh {tuple(axis_shapes)} needs {n_need} devices, the process "
+            f"group has {n_have} (start one process per device, each in the "
+            "group with its rank and world size, or shrink the mesh)")
+
+
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
               device_type: str = "cuda") -> DeviceMesh:
     """A mesh over real devices of ``device_type``. Starts a process
     group of size 1 (nccl on "cuda", gloo on "cpu") when the mesh has one
-    device and no group exists."""
-    size = math.prod(axis_shapes)
+    device and no group exists; its rendezvous is an in-memory store, so
+    it takes no port. A mesh larger than the group raises
+    (``check_mesh``)."""
     _drop_fake_group()
+    check_mesh(axis_shapes)
     if not dist.is_initialized():
-        if size != 1:
-            raise ValueError(
-                f"a {tuple(axis_shapes)} mesh spans {size} processes: "
-                "start each rank's process group (init_process_group with "
-                "its rank and world size) before building it")
         dist.init_process_group(
             "nccl" if device_type == "cuda" else "gloo",
-            init_method=f"tcp://localhost:{_free_port()}",
-            world_size=1, rank=0)
+            store=dist.HashStore(), world_size=1, rank=0)
     return init_device_mesh(device_type, tuple(axis_shapes),
                             mesh_dim_names=tuple(axis_names))
 
@@ -101,3 +105,9 @@ def planning_device() -> str:
 def mesh_sizes(mesh) -> dict:
     """{axis name: size} of a mesh."""
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def axis_group(mesh, axis: str) -> tuple:
+    """(process group, size, this rank's index) of one mesh axis."""
+    return (mesh.get_group(axis), mesh_sizes(mesh)[axis],
+            mesh.get_local_rank(axis))

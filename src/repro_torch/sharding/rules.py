@@ -28,7 +28,8 @@ from __future__ import annotations
 import re
 from typing import Sequence, Union
 
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.sharding.compat import mesh_sizes
 from repro_torch.train import tree as tree_lib
@@ -176,10 +177,28 @@ def batch_spec(mesh, ndim: int, batch_axis: int = 0) -> Spec:
     return Spec(*entries)
 
 
+def batch_shardings(mesh, batch_tree):
+    """Tree of ``(mesh, placements)`` for a batch: the leading dim over
+    the DP axes where it divides, a scalar replicated."""
+    def leaf(x):
+        spec = batch_spec(mesh, x.dim()) if x.dim() else ()
+        # Divisibility fit: long_500k has global_batch=1, so it stays
+        # replicated.
+        return mesh, placements(mesh, fit_spec(mesh, x.shape, tuple(spec)))
+    return tree_lib.tree_map(leaf, batch_tree)
+
+
 def distribute(tree, shardings):
     """Place each tensor of ``tree`` on its ``(mesh, placements)`` from
     ``shardings`` (``param_sharding``'s tree): a DTensor holding this
-    rank's shard."""
-    from torch.distributed.tensor import distribute_tensor
+    rank's shard. Every rank of the mesh passes the same full value and
+    keeps its own shard of it, so nothing is sent."""
     return tree_lib.tree_map(
-        lambda t, sh: distribute_tensor(t, sh[0], sh[1]), tree, shardings)
+        lambda t, sh: distribute_tensor(t, sh[0], sh[1], src_data_rank=None),
+        tree, shardings)
+
+
+def full(x):
+    """A leaf's full logical value: a DTensor gathered over its mesh (a
+    collective that every rank calls), anything else as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x

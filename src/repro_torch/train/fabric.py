@@ -50,12 +50,24 @@ takes a seed (``init_params(seed)``) where the JAX package takes a
 layout (``state_to_numpy(state)``, ``state_from_numpy(tree, device)``:
 the LM task publishes the JAX package's tree, so either package restores
 the other's versions); without them the state is stored as it is.
-Placing a learner on a device mesh waits for the port of ``sharding/``
-(ROADMAP.md Q7).
+
+A learner given ``mesh=`` (a ``DeviceMesh``) holds its params and
+optimizer state as DTensors placed by the sharding rules
+(``ckpt.elastic.reshard``) and runs its grad function under the mesh's
+sharding context; the error-feedback residual, which only the wire
+reads, stays a local tensor. A recovered learner restores in the store's
+layout, converts (``from_store``) and then reshards. Publishing and the
+gradient wire gather to numpy, as without a mesh. On a mesh of N devices
+every rank builds the learner and steps it in lockstep (the gathers are
+collectives), its ``batch_fn`` giving each rank the same batch, of which
+each rank keeps its shard; ``launch.train`` builds only meshes its one
+process spans (1x1). The sharding context is the process's: the learners
+of one process take turns on it (``_MESH_LOCK``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import threading
@@ -66,7 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt.checkpoint import ModelStore
-from repro_torch.ckpt.elastic import restore_elastic
+from repro_torch.ckpt.elastic import reshard, restore_elastic
 from repro_torch.core import courier, telemetry
 from repro_torch.core.discovery import Heartbeater
 from repro_torch.core.fault import (FaultEvent, FaultInjector, RestartPolicy,
@@ -76,6 +88,8 @@ from repro_torch.core.nodes.base import (WorkerContext, get_current_context,
 from repro_torch.data.replay import (ReplayServer, TableConfig,
                                      is_writer_stalled)
 from repro_torch.serve.engine import resolve_device
+from repro_torch.sharding import ShardingCtx, use_sharding
+from repro_torch.sharding.rules import batch_shardings, distribute, full
 from repro_torch.train import grad_compression, tree
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.train_step import to_device
@@ -99,23 +113,34 @@ class FabricConfig:
     seed: int = 0
 
 
+def gathered(t):
+    """A tree with each DTensor gathered to its full value on its device
+    (a collective over its mesh)."""
+    return tree.tree_map(full, t)
+
+
 def host_tree(t):
     """Device tree -> picklable numpy tree (the wire/ckpt form)."""
     return tree.tree_map(
         lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
-        else np.asarray(x), t)
+        else np.asarray(x), gathered(t))
 
 
 def to_store(task, state) -> Any:
     """``state`` in the store's layout: the task's own export, or numpy."""
     export = getattr(task, "state_to_numpy", None)
-    return export(state) if export is not None else host_tree(state)
+    return export(gathered(state)) if export is not None else host_tree(state)
 
 
 def from_store(task, t, device) -> Any:
     """Inverse of ``to_store``, onto ``device``."""
     load = getattr(task, "state_from_numpy", None)
     return load(t, device) if load is not None else to_device(t, device)
+
+
+# The sharding context and DTensor's implicit replication are the
+# process's: mesh learners of one process run their sharded steps in turn.
+_MESH_LOCK = threading.RLock()
 
 
 def registry_resolver(registry: Any, role: str) -> Callable[[], Any]:
@@ -227,12 +252,13 @@ class LearnerWorker:
     the next batch (numpy) or ``None`` (retry). State is ``{"params",
     "opt", "ef"}`` — the int8 error-feedback residual is real training
     state and rides in every published version (see ckpt/elastic.py).
-    ``device`` defaults to the CUDA card and raises without one.
+    ``device`` defaults to the CUDA card and raises without one; with
+    ``mesh`` the state lives on the mesh (its device type) as DTensors.
     """
 
     def __init__(self, task, batch_fn: Callable[[], Any], store_dir: str,
                  registry: Any, cfg: FabricConfig, *, name: str = "learner-0",
-                 chief: Optional[bool] = None, device="cuda",
+                 chief: Optional[bool] = None, device="cuda", mesh=None,
                  endpoint: Optional[str] = None):
         self._task = task
         self._batch_fn = batch_fn
@@ -240,7 +266,9 @@ class LearnerWorker:
         self._cfg = cfg
         self._name = name
         self._chief = name.endswith("-0") if chief is None else bool(chief)
-        self._device = resolve_device(device)
+        self._mesh = mesh
+        self._device = resolve_device(
+            mesh.device_type if mesh is not None else device)
         self._store = ModelStore(store_dir, keep=cfg.keep_versions)
         self._grad_fn = task.grad_fn
         self._lock = threading.Lock()
@@ -261,9 +289,10 @@ class LearnerWorker:
         latest = self._store.latest_version()
         if latest is not None:
             # Recovery/grow path: resume from the last *published* version
-            # on this incarnation's device. The step loss of a learner
-            # death is therefore bounded by publish_every. fill_missing
-            # tolerates versions published before the EF residual existed.
+            # on this incarnation's device, then reshard onto whatever
+            # mesh it runs on. The step loss of a learner death is
+            # therefore bounded by publish_every. fill_missing tolerates
+            # versions published before the EF residual existed.
             state = from_store(task, restore_elastic(
                 self._store.version_dir(latest), to_store(task, like),
                 fill_missing=True), self._device)
@@ -273,6 +302,9 @@ class LearnerWorker:
         else:
             state = like
             self._step = 0
+        if mesh is not None:   # the wire's residual ef stays local
+            state = dict(state, **reshard(
+                {"params": state["params"], "opt": state["opt"]}, mesh))
         self._params = state["params"]
         self._opt = state["opt"]
         self._ef = state["ef"]
@@ -287,11 +319,14 @@ class LearnerWorker:
 
     # -- registry-facing -----------------------------------------------------
     def load(self) -> dict:
+        mesh = self._mesh
         return {"role": "learner", "chief": self._chief,
                 "step": self._step, "start_step": self._start_step,
                 "version": self._published, "loss": self._loss,
                 "steps_per_s": round(self._steps_per_s, 3),
-                "done": self._done}
+                "done": self._done,
+                "mesh": None if mesh is None else dict(
+                    zip(mesh.mesh_dim_names, mesh.shape))}
 
     def telemetry(self) -> dict:
         """Standard hub scrape: process metrics/spans + this worker's load."""
@@ -317,6 +352,35 @@ class LearnerWorker:
         self._retired = True
         self._heartbeater.stop(deregister=True)
 
+    # -- the step's computation ---------------------------------------------
+    @contextlib.contextmanager
+    def _on_mesh(self):
+        """The mesh's sharding context (nothing without a mesh)."""
+        if self._mesh is None:
+            yield
+            return
+        names = self._mesh.mesh_dim_names
+        ctx = ShardingCtx(self._mesh,
+                          dp=tuple(a for a in ("pod", "data") if a in names))
+        with _MESH_LOCK, use_sharding(ctx):
+            yield
+
+    def _place_params(self, host_params) -> Any:
+        params = to_device(host_params, self._device)
+        return reshard(params, self._mesh) if self._mesh is not None \
+            else params
+
+    def _grads(self, batch) -> tuple:
+        """(loss, gradient tree) at the current params on a numpy batch;
+        on a mesh, the gradients gathered to full tensors."""
+        batch = to_device(batch, self._device)
+        if self._mesh is None:
+            return self._grad_fn(self._params, batch)
+        with self._on_mesh():
+            batch = distribute(batch, batch_shardings(self._mesh, batch))
+            loss, grads = self._grad_fn(self._params, batch)
+            return float(full(loss)), gathered(grads)
+
     # -- peer RPC surface ----------------------------------------------------
     def compute_grads(self, step: int, params_payload, strategy: str) -> dict:
         """Chief -> peer: gradient contribution at the chief's params.
@@ -328,13 +392,12 @@ class LearnerWorker:
         if self._dead:
             raise ConnectionError(f"{self._name} is dead")
         with self._lock:
-            self._params = to_device(params_payload, self._device)
+            self._params = self._place_params(params_payload)
             self._step = int(step)
             batch = self._batch_fn()
             if batch is None:
                 raise RuntimeError(f"{self._name}: no batch available")
-            loss, grads = self._grad_fn(self._params,
-                                        to_device(batch, self._device))
+            loss, grads = self._grads(batch)
             if strategy == "int8_ef":
                 payload, self._ef = grad_compression.compress_tree(
                     grads, self._ef, method="int8_ef")
@@ -399,8 +462,7 @@ class LearnerWorker:
         batch = self._next_batch(ctx)
         if batch is None:
             return False
-        loss, grads = self._grad_fn(self._params,
-                                    to_device(batch, self._device))
+        loss, grads = self._grads(batch)
         if strategy == "int8_ef":
             # Round-trip the local contribution through our own residual so
             # the aggregate is uniformly quantized and the published EF
@@ -434,8 +496,11 @@ class LearnerWorker:
 
         n = len(contribs)
         avg = tree.tree_map(lambda *xs: sum(xs) / n, *contribs)
-        self._params, self._opt, _ = opt_lib.apply_updates(
-            self._task.optimizer, self._params, avg, self._opt)
+        if self._mesh is not None:
+            avg = reshard(avg, self._mesh)
+        with self._on_mesh():
+            self._params, self._opt, _ = opt_lib.apply_updates(
+                self._task.optimizer, self._params, avg, self._opt)
         self._step += 1
         self._loss = float(np.mean(losses))
         self.history.append((self._step, self._loss))

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.sharding.rules import full
 from repro_torch.train import tree
 
 
@@ -72,7 +73,7 @@ def _decay_mask(path) -> bool:
 def apply_updates(cfg: OptimizerConfig, params, grads, state):
     """One AdamW step. Returns (new_params, new_state, metrics)."""
     device = tree.leaves(params)[0].device
-    step = torch.as_tensor(state["step"]).to("cpu", torch.int32) + 1
+    step = torch.as_tensor(full(state["step"])).to("cpu", torch.int32) + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads)
     scale = None

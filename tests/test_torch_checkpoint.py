@@ -7,8 +7,8 @@ files, a port-published model version restored bit for bit by the JAX
 and ``params_to_numpy`` (ROADMAP.md C12) as the exact inverse of
 ``params_from_numpy`` for every family: MoE (router and stacked expert
 leaves), cross-attention and the audio encoder's ``embed.conv_pos``
-included. The elastic reshard case waits for the port's
-sharding (queue item Q7).
+included; and the sharded restores (``shardings=``, the elastic
+reshard) on a 1x1 gloo mesh, whose process group each such test ends.
 """
 
 import dataclasses
@@ -19,6 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro import configs as jconfigs
 from repro.ckpt import checkpoint as jckpt
@@ -208,12 +210,84 @@ def test_self_restoring_node_pattern(tmp_path):
     assert len([f for f in launcher.failures if not f.fatal]) == 1
 
 
-def test_restore_refuses_shardings(tmp_path):
+@pytest.fixture
+def mesh11():
+    """A 1x1 gloo mesh; its process group ends with the test (a later
+    planning mesh in the same worker needs the fake backend)."""
+    from repro_torch.sharding.compat import make_mesh
+    yield make_mesh((1, 1), ("data", "model"), "cpu")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_restore_refuses_shardings(tmp_path, mesh11):
+    """``shardings=`` — a tree of ``(mesh, placements)`` as
+    ``param_sharding`` gives it, or a flat dict by leaf name — places
+    each leaf it names on the mesh, bit-equal; the rest stay where
+    ``like``'s leaves live. Refused: shardings that name a leaf ``like``
+    lacks, and a leaf of another shape. ``restore_latest`` and
+    ``load_version`` take shardings too."""
+    from repro_torch.sharding.rules import param_sharding
     tree = _tree(9)
     d = str(tmp_path / "ck")
     checkpoint.save(tree, d)
-    with pytest.raises(ValueError, match="Q7"):
-        checkpoint.restore(d, like=tree, shardings={"params": None})
+    sh = param_sharding(tree, mesh11)
+    got = checkpoint.restore(d, like=tree, shardings=sh)
+    for (name, a), b in zip(checkpoint._flatten(got), _leaves(tree)):
+        assert isinstance(a, DTensor), name
+        assert a.device_mesh is mesh11 and torch.equal(a.full_tensor(), b)
+    flat = {"params/w": sh["params"]["w"]}
+    got = checkpoint.restore(d, like=tree, shardings=flat)
+    assert isinstance(got["params"]["w"], DTensor)
+    assert not isinstance(got["params"]["b"], DTensor)
+    assert torch.equal(got["params"]["b"], tree["params"]["b"])
+    with pytest.raises(KeyError, match="params/nope"):
+        checkpoint.restore(d, like=tree,
+                           shardings={"params/nope": sh["params"]["w"]})
+    bad = dict(tree, params={"w": torch.zeros((4, 16)),
+                             "b": tree["params"]["b"]})
+    with pytest.raises(ValueError, match="shape"):
+        checkpoint.restore(d, like=bad, shardings=sh)
+    store = checkpoint.ModelStore(str(tmp_path / "store"))
+    store.publish_version(3, tree)
+    for got in (store.restore_latest(tree, sh)[1],
+                store.load_version(3, like=tree, shardings=sh)):
+        full = [x.full_tensor() for x in _leaves(got)]
+        assert all(isinstance(x, DTensor) for x in _leaves(got))
+        assert all(torch.equal(a, b) for a, b in zip(full, _leaves(tree)))
+
+
+def test_save_gathers_dtensor_leaves(tmp_path, mesh11):
+    """A tree of DTensors saves as its full logical values: the same
+    manifest and bytes as the plain tree, which the JAX package reads."""
+    from repro_torch.ckpt.elastic import reshard
+    tree = _tree(10)
+    placed = reshard(tree, mesh11)
+    checkpoint.save(placed, str(tmp_path / "mesh"))
+    checkpoint.save(tree, str(tmp_path / "plain"))
+    for name in ("manifest.json", "params__w.npy", "opt__step.npy"):
+        assert (tmp_path / "mesh" / name).read_bytes() == \
+            (tmp_path / "plain" / name).read_bytes()
+    got = jckpt.restore(str(tmp_path / "mesh"))
+    np.testing.assert_array_equal(got["params/w"],
+                                  tree["params"]["w"].numpy())
+
+
+def test_elastic_reshard_roundtrip(tmp_path, mesh11):
+    """Save unsharded, restore onto a mesh (elastic): the port of the
+    JAX package's case, on a 1x1 gloo mesh."""
+    from repro_torch.ckpt import elastic
+    g = torch.Generator().manual_seed(4)
+    tree = {"blocks": [{"0": {"mlp": {"w_up": {"kernel": torch.randn(
+        (4, 8), generator=g)}}}}]}
+    d = str(tmp_path / "ck")
+    checkpoint.save(tree, d)
+    out = elastic.restore_elastic(d, like=tree, new_mesh=mesh11)
+    leaf = out["blocks"][0]["0"]["mlp"]["w_up"]["kernel"]
+    assert isinstance(leaf, DTensor)
+    assert torch.equal(leaf.full_tensor(),
+                       tree["blocks"][0]["0"]["mlp"]["w_up"]["kernel"])
+    assert leaf.device_mesh.mesh_dim_names == ("data", "model")
 
 
 # -- the layout shared with the JAX package ----------------------------------

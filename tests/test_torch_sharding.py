@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -234,9 +233,9 @@ from repro_torch.sharding.compat import make_mesh
 from repro_torch.sharding.rules import distribute, param_sharding
 from repro_torch.train import tree
 
-arch, shape, port, rank = sys.argv[1], eval(sys.argv[2]), sys.argv[3], \\
+arch, shape, rdv, rank = sys.argv[1], eval(sys.argv[2]), sys.argv[3], \\
     int(sys.argv[4])
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+dist.init_process_group("gloo", init_method=f"file://{rdv}",
                         world_size=4, rank=rank)
 torch.manual_seed(0)
 cfg = configs.get_reduced(arch)
@@ -301,23 +300,19 @@ dist.destroy_process_group()
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.mark.parametrize("arch,shape", [
     ("qwen2-1.5b", (2, 2)),      # TP 2 over 2 KV heads
     ("qwen2-1.5b", (1, 4)),      # TP 4: the KV heads do not divide TP
     ("mixtral-8x7b", (2, 2)),
     ("falcon-mamba-7b", (2, 2)),  # the selective scan on local shards
 ])
-def test_sharded_forward_equals_unsharded_on_gloo(arch, shape):
+def test_sharded_forward_equals_unsharded_on_gloo(arch, shape, tmp_path):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    port = str(_free_port())
+    # A file rendezvous under this test's own directory: a port picked by
+    # binding and releasing it could be taken by another worker's group.
+    rdv = str(tmp_path / "rdv")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _GLOO_RANK, arch, repr(shape), port, str(r)],
+        [sys.executable, "-c", _GLOO_RANK, arch, repr(shape), rdv, str(r)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=ROOT) for r in range(4)]
     outs = []

@@ -9,6 +9,9 @@ end on the CPU.
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 import time
 
 import jax
@@ -16,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro import configs as jconfigs
 from repro.ckpt import elastic as jelastic
@@ -32,7 +36,7 @@ from repro.train import train_step as jts
 from repro_torch import configs
 from repro_torch.ckpt import checkpoint
 from repro_torch.ckpt.checkpoint import ModelStore
-from repro_torch.ckpt.elastic import reshard, restore_elastic
+from repro_torch.ckpt.elastic import restore_elastic
 from repro_torch.core import courier
 from repro_torch.core.discovery import Registry
 from repro_torch.core.fault import RestartPolicy, hedged_map
@@ -47,6 +51,7 @@ from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 from repro_torch.train.train_step import TrainConfig
 
 torch.set_num_threads(1)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True)
@@ -431,11 +436,57 @@ def _lm_state(cfg, seed=0):
             "ef": tree.tree_map(torch.zeros_like, params)}
 
 
+_MESH_RESTORE = """
+import sys
+import torch
+from torch.distributed.tensor import DTensor
+from repro_torch import configs
+from repro_torch.ckpt.elastic import reshard, restore_elastic
+from repro_torch.models import transformer as tt
+from repro_torch.sharding.compat import make_mesh
+from repro_torch.sharding.rules import path_str, placements, spec_for_path
+from repro_torch.train import tree
+from repro_torch.train.optimizer import init_opt_state
+d, seed = sys.argv[1], int(sys.argv[2])
+cfg = configs.get_reduced("qwen2-1.5b")
+params = tt.init_params(cfg, seed, device="cpu", dtype=torch.float32)
+like = {"params": params, "opt": init_opt_state(params),
+        "ef": tree.tree_map(torch.zeros_like, params)}
+mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+
+
+def full(t):
+    return {"/".join(map(str, p)): x.full_tensor()
+            for p, x in tree.leaves_with_path(t)}
+
+
+def placed(t):
+    return all(isinstance(x, DTensor) and tuple(x.placements) == placements(
+        mesh, spec_for_path(path_str(p), tuple(x.shape), mesh))
+        for p, x in tree.leaves_with_path(t))
+
+
+got = restore_elastic(d, like, new_mesh=mesh, fill_missing=True)
+moved = reshard(like, mesh)
+for name, x in full(got).items():
+    if name.startswith("ef/"):
+        assert float(x.abs().max()) == 0.0, name
+want = {"/".join(map(str, p)): x for p, x in tree.leaves_with_path(like)}
+for name, x in full(moved).items():
+    assert torch.equal(x, want[name]), name
+assert placed(got) and placed(moved)
+torch.save(full(got), d + ".pt")
+print("MESH_OK", len(tree.leaves(got)))
+"""
+
+
 def test_fill_missing_supplies_ef_residual_on_old_checkpoints(tmp_path):
     """A version published before the error-feedback residual existed
     restores: the missing ``ef`` comes from ``like`` (the caller's zero
-    residual), everything present stays bit-exact. Restoring onto a new
-    mesh waits for the port's sharding (Q7)."""
+    residual), everything present stays bit-exact — also onto a 1x1 gloo
+    mesh (``new_mesh``, in a process of its own: it starts a process
+    group), where every leaf is a DTensor on the rules' placements, and
+    ``reshard`` places a tree there."""
     cfg = configs.get_reduced("qwen2-1.5b")
     state = _lm_state(cfg, seed=3)
     d = str(tmp_path / "old")
@@ -450,10 +501,17 @@ def test_fill_missing_supplies_ef_residual_on_old_checkpoints(tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert all(float(leaf.abs().max()) == 0.0
                for leaf in tree.leaves(got["ef"]))
-    with pytest.raises(ValueError, match="Q7"):
-        restore_elastic(d, like, new_mesh=object())
-    with pytest.raises(ValueError, match="Q7"):
-        reshard(like, object())
+    proc = subprocess.run(
+        [sys.executable, "-c", _MESH_RESTORE, d, "4"], capture_output=True,
+        text=True, timeout=240, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "MESH_OK" in proc.stdout
+    on_mesh = torch.load(d + ".pt")
+    for path, leaf in tree.leaves_with_path({"params": state["params"],
+                                             "opt": state["opt"]}):
+        got_leaf = on_mesh["/".join(map(str, path))]
+        assert got_leaf.dtype == leaf.dtype and torch.equal(got_leaf, leaf)
 
 
 # -- versions published by either package's learner ---------------------------
@@ -620,8 +678,47 @@ def test_train_cli_survives_the_chief_kill(tmp_path, capsys):
     assert "eval v" in out.out
 
 
+@pytest.fixture
+def no_group_left():
+    """A test whose program starts a process group (a learner mesh) ends
+    it: a later planning mesh in the same worker needs the fake
+    backend."""
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_mesh_training_equals_plain_training(tmp_path, no_group_left):
+    """``mesh_shape=(1, 1)``: the learner's state lives on a 1x1 gloo
+    mesh as DTensors and its steps run under the mesh's sharding
+    context; the loss of every step (published with each version) and
+    the last version's bytes equal those of ``mesh_shape=None``."""
+    cfg = dataclasses.replace(launch_train.LM_TINY, num_layers=2, d_model=64,
+                              d_ff=128)
+    runs = {}
+    for mesh in (None, (1, 1)):
+        d = str(tmp_path / f"mesh-{mesh}")
+        program = launch_train.build_program(
+            cfg, steps=6, ckpt_dir=d, batch_size=8, seq_len=32,
+            with_eval=False, publish_every=1, mesh_shape=mesh, device="cpu")
+        from repro_torch import core as lp
+        lp.launch_and_wait(program, timeout_s=300)
+        store = ModelStore(d)
+        assert store.versions() == [1, 2, 3, 4, 5, 6]
+        runs[mesh] = ([store.metadata(v)["loss"] for v in store.versions()],
+                      checkpoint.restore(store.version_dir(6)))
+    assert dist.is_initialized() and dist.get_world_size() == 1
+    (loss_a, last_a), (loss_b, last_b) = runs[None], runs[(1, 1)]
+    assert loss_a == loss_b and all(np.isfinite(loss_a))
+    assert sorted(last_a) == sorted(last_b)
+    for name, arr in last_a.items():
+        np.testing.assert_array_equal(last_b[name], arr, err_msg=name)
+
+
 def test_build_program_refuses_a_mesh_and_a_missing_card(tmp_path):
-    with pytest.raises(ValueError, match="Q7"):
+    """A mesh larger than the process group raises the mesh node's
+    ``RuntimeError`` when the program is built; so does a missing card."""
+    with pytest.raises(RuntimeError, match=r"mesh \(2, 1\) needs 2 devices"):
         launch_train.build_program(launch_train.LM_TINY, steps=2,
                                    ckpt_dir=str(tmp_path),
                                    mesh_shape=(2, 1), device="cpu")
