@@ -1,5 +1,5 @@
 """Prove the PyTorch port runs on one NVIDIA GPU: build, check, serve, train,
-plan, train on a mesh and run the examples.
+plan, train on a mesh, run the examples and train on a mesh of processes.
 
     python3 chip_smoke.py
 
@@ -80,7 +80,17 @@ each of which ends the run with a non-zero exit on failure:
    quickstart, mapreduce, parameter_server (cached), evolution
    strategies (whose fitness must improve), actor_learner, train_lm
    with ``--mesh 1,1``, and serve_lm at full-width bf16 Qwen2-1.5B,
-   flat and paged, every request served at its length.
+   flat and paged, every request served at its length;
+12. mesh group: one learner at Qwen2-1.5B's width cut to 4 layers, at
+   fp32, plain and on a mesh whose group ``train.mesh_group.MeshGroup``
+   starts as the training program does for a mesh of processes (world 1
+   over nccl on the card: two ranks cannot share it), whose losses must
+   equal the plain learner's within 1e-5 (step times, CUDA peaks), its
+   version scored by the training program's evaluator through K3; and
+   phase 8's training program at the tiny preset's width on a (2, 1)
+   mesh of two gloo processes on the host's CPU (the program rank 0, one
+   follower it starts), where the chief's respawn must restore onto the
+   mesh.
 
 Prints JSON lines; the one before the last is the ``{"kernels": ...}``
 record, the last ``{"ok": true, "device": {...}}``. Exits non-zero, and
@@ -571,9 +581,10 @@ def _flash_attention_record(gen, errors) -> dict:
     32/8 heads, dh 128, one prompt of FAMILY_PLEN as the engine prefills
     it), Llama-3.2-Vision's self-attention (32/8 heads, B=2 as
     ``generate`` batches it) and phase 8's evaluator (LM100M: 12/4 heads,
-    dh 64, one 8 x 64-token batch) — then phase 7's non-causal shapes. The
-    record's numbers are RecurrentGemma's; the others stand under
-    ``other_shapes``."""
+    dh 64, one 8 x 64-token batch) — and phase 12's evaluator in fp32
+    (Qwen2-1.5B's heads, one GROUP_B x GROUP_S batch), then phase 7's
+    non-causal shapes. The record's numbers are RecurrentGemma's; the
+    others stand under ``other_shapes``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -599,18 +610,23 @@ def _flash_attention_record(gen, errors) -> dict:
                errors)
 
     shapes = {}
-    for label, (B, S, H, KV, dh, window) in {
-            "qwen2-1.5b prefill": (1, 1536, 12, 2, 128, None),
-            "recurrentgemma-2b LOCAL prefill": (1, 3072, 10, 1, 256, 2048),
-            "mixtral-8x7b prefill": (1, FAMILY_PLEN, 32, 8, 128, 4096),
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for label, (B, S, H, KV, dh, window, dtype) in {
+            "qwen2-1.5b prefill": (1, 1536, 12, 2, 128, None, bf16),
+            "recurrentgemma-2b LOCAL prefill": (1, 3072, 10, 1, 256, 2048,
+                                                bf16),
+            "mixtral-8x7b prefill": (1, FAMILY_PLEN, 32, 8, 128, 4096, bf16),
             "llama-3.2-vision-11b self prefill": (2, FAMILY_PLEN, 32, 8, 128,
-                                                  None),
-            "lm100m evaluator": (8, 64, 12, 4, 64, None),
+                                                  None, bf16),
+            "lm100m evaluator": (8, 64, 12, 4, 64, None, bf16),
+            "qwen2-1.5b mesh group evaluator": (GROUP_B, GROUP_S, 12, 2, 128,
+                                                None, fp32),
     }.items():
         (q, k, v), out, expect = _flash_case(gen, B, S, S, H, KV, dh, True,
-                                             window, torch.bfloat16)
+                                             window, dtype)
+        short = {bf16: "bf16", fp32: "fp32"}[dtype]
         name = (f"K3 main {label} B={B} S={S} H={H} KV={KV} dh={dh} "
-                f"window={window} bf16")
+                f"window={window} {short}")
         c = _check(name, out, expect, errors)
         ok = ref.visible(S, S, True, window, q.device)
         dropped = ok.clone()
@@ -620,8 +636,9 @@ def _flash_attention_record(gen, errors) -> dict:
                           f"keys {S // 2}-{min(S, S // 2 + 64) - 1} dropped")
         pairs = int(ok.sum())
         flops = 4 * B * H * pairs * dh                # q.k and p.v FMAs
-        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
-        bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16)
+        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
+            * q.element_size()
+        bound_ms, bound_by = _bound(nbytes, flops, dtype)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if window is None or window >= S:          # the band is causal
             def lib():
@@ -647,7 +664,7 @@ def _flash_attention_record(gen, errors) -> dict:
             "visible_pairs_per_head": pairs,
             "library_ms": _time_ms(lib), "library_call": lib_call,
             "shape": dict(B=B, S=S, H=H, KV=KV, dh=dh, window=window,
-                          causal=True, dtype="bfloat16")}
+                          causal=True, dtype=str(dtype).split(".")[1])}
     for label, (B, Sq, Sk, H, KV, dh) in {
             "hubert-xlarge encoder": (1, HUBERT_S, HUBERT_S, 16, 16, 80),
             "llama-3.2-vision-11b cross prefill": (1, 128, VISION_T, 32, 8,
@@ -662,7 +679,8 @@ def _flash_attention_record(gen, errors) -> dict:
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:121",
             "launches": None, "launches_by_path": None, **main,
-            "bound_rate": "989 TFLOP/s bf16, 3.35 TB/s (H100 SXM datasheet)",
+            "bound_rate": ("989 TFLOP/s bf16, 67 TFLOP/s fp32, 3.35 TB/s "
+                           "(H100 SXM datasheet)"),
             "other_shapes": shapes}
 
 
@@ -2022,19 +2040,21 @@ def _chaos_after_publish():
     return ChaosAfterPublish
 
 
-def _train_program(device_line: str, mesh_shape=None) -> dict:
-    """c) ``launch.train.build_program`` on the thread launcher: LM100M,
-    2 learners, the chief killed after its first publish; with
-    ``mesh_shape`` the learners' state on that mesh (phase 10 e), where
-    the respawned chief must restore onto it. Returns its kernel
-    launches."""
+def _train_program(device_line: str, mesh_shape=None, device="cuda",
+                   phase: str = "train", cfg=None) -> dict:
+    """c) ``launch.train.build_program`` on the thread launcher: LM100M
+    (or ``cfg``), 2 learners, the chief killed after its first publish;
+    with ``mesh_shape`` the learners' state on that mesh (phase 10 e, and
+    phase 12 a on a mesh of processes), where the respawned chief must
+    restore onto it. On the card, its evaluator must launch K3. Returns
+    its kernel launches."""
     from repro_torch import core as lp
     from repro_torch.ckpt import checkpoint
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.launch import train as lt
     from repro_torch.models import convert, transformer
     from repro_torch.train import fabric, grad_compression
-    cfg = lt.LM100M
+    cfg = cfg or lt.LM100M
     version_bytes = 4 * 4 * cfg.param_count()       # params, m, v, ef
     store = _store_dir(int(5 * version_bytes))
     timings = {"publish_s": [], "restore_s": []}
@@ -2066,7 +2086,7 @@ def _train_program(device_line: str, mesh_shape=None) -> dict:
         program = lt.build_program(
             cfg, steps=PROGRAM_STEPS, ckpt_dir=store, learners=2,
             publish_every=PROGRAM_PUBLISH_EVERY, kill_after=0.0,
-            registry_ttl_s=3.0, mesh_shape=mesh_shape, device="cuda")
+            registry_ttl_s=3.0, mesh_shape=mesh_shape, device=device)
         tee = _Tee(sys.stdout)
         _reset_launches()
         t0 = time.perf_counter()
@@ -2090,7 +2110,7 @@ def _train_program(device_line: str, mesh_shape=None) -> dict:
         evals = re.findall(r"eval v(\d+) loss: ([0-9.]+)", tee.text())
         if not evals:
             fail("train program: the evaluator scored no version")
-        if not run["flash_attention"]:
+        if device == "cuda" and not run["flash_attention"]:
             fail("train program: the evaluator launched no K3")
         if "kill_step" not in _TRAIN_CHAOS:
             fail("train program: the chief was never killed")
@@ -2109,11 +2129,11 @@ def _train_program(device_line: str, mesh_shape=None) -> dict:
             cfg, 0, device="cpu", dtype=cfg.param_dtype))
         params = convert.params_from_numpy(
             cfg, ms.load_version(last, like={"params": like})["params"],
-            "cuda")
+            device)
         data_cfg = DataConfig(seq_len=64, batch_size=8,
                               vocab_size=cfg.vocab_size, seed=999)
         batch = next(iter(make_source(data_cfg)))
-        ev = lt.Evaluator(store, cfg, data_cfg, device="cuda")
+        ev = lt.Evaluator(store, cfg, data_cfg, device=device)
         k3, dense = ev.score(params, batch), ev.score(params, batch,
                                                       impl="dense")
         if abs(k3 - dense) > EVAL_ABS_TOL:
@@ -2123,11 +2143,11 @@ def _train_program(device_line: str, mesh_shape=None) -> dict:
                        if f.is_file()) / 1e9
     finally:
         shutil.rmtree(store, ignore_errors=True)
-    emit({"phase": "train" if mesh_shape is None else "mesh",
+    emit({"phase": phase,
           "run": "training program" + (
               "" if mesh_shape is None else f" on a {mesh_shape} mesh"),
           "config":
-          f"lm100m ({cfg.param_count() / 1e6:.1f} M, bf16 compute, fp32 "
+          f"{cfg.name} ({cfg.param_count() / 1e6:.1f} M, bf16 compute, fp32 "
           f"master weights), 2 learners, {PROGRAM_STEPS} steps of 16 x 64 "
           f"tokens, publish every {PROGRAM_PUBLISH_EVERY}, chief killed "
           "after its first publish, registry TTL 3 s",
@@ -2142,7 +2162,7 @@ def _train_program(device_line: str, mesh_shape=None) -> dict:
           "wire_strategies": sorted(methods),
           "evals": [[int(v), float(x)] for v, x in evals],
           "last_version_loss_k3": k3, "last_version_loss_dense": dense,
-          "eval_abs_tol": EVAL_ABS_TOL, "launches": run,
+          "eval_abs_tol": EVAL_ABS_TOL, "launches": run, "runs_on": device,
           "device": device_line})
     del params
     _collect()
@@ -2601,7 +2621,7 @@ def phase_mesh(device_line: str) -> dict:
     _mesh_restore(device_line)
     _mesh_collectives(device_line)
     _mesh_learner(device_line)
-    run = _train_program(device_line, mesh_shape=(1, 1))
+    run = _train_program(device_line, mesh_shape=(1, 1), phase="mesh")
     dist.destroy_process_group()
     return {"train program lm100m, 1x1 mesh": run}
 
@@ -2734,6 +2754,157 @@ def phase_examples(device_line: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 12. the mesh group: a training mesh across processes
+# ---------------------------------------------------------------------------
+
+# Two ranks cannot share the one card: NCCL refuses it, and gloo's
+# functional collectives, which DTensor calls, crash on CUDA tensors
+# (scripts/torch_probe_gloo_cuda.py). So the card runs the group at world
+# 1 over nccl, started as the program starts a mesh of processes (a
+# TCPStore, rank 0, no follower), and the 2-rank program runs as gloo
+# processes on the host's CPU.
+# b) Qwen2-1.5B's width cut to MESH_LAYERS, one learner, fp32 compute.
+GROUP_STEPS, GROUP_B, GROUP_S = 4, 8, 1024
+GROUP_LOSS_RTOL = 1e-5
+
+
+def _group_learner(device_line: str) -> dict:
+    """b) one learner on the card, plain and on a (1, 1) mesh whose group
+    ``MeshGroup`` starts: each step's loss within ``GROUP_LOSS_RTOL``,
+    each chief step timed to a synchronize, the CUDA peak of each run;
+    then the training program's evaluator scores the mesh learner's
+    version through K3 against dense. Returns that path's launches."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.ckpt.checkpoint import ModelStore
+    from repro_torch.core.discovery import Registry
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch import train as lt
+    from repro_torch.models import convert, transformer
+    from repro_torch.train import fabric
+    from repro_torch.train.mesh_group import MeshGroup
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import TrainConfig
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
+                              num_layers=MESH_LAYERS,
+                              compute_dtype="float32")
+    task = lt.LMTask(cfg, TrainConfig(optimizer=OptimizerConfig(
+        lr=1e-3, warmup_steps=20, total_steps=GROUP_STEPS)), "cuda")
+    data_cfg = DataConfig(seq_len=GROUP_S, batch_size=GROUP_B,
+                          vocab_size=cfg.vocab_size)
+    fcfg = fabric.FabricConfig(total_steps=GROUP_STEPS, batch_size=GROUP_B,
+                               publish_every=GROUP_STEPS)
+    step = fabric.LearnerWorker._chief_step
+    runs, peaks = {}, {}
+    group = None
+    for label in ("plain", "group"):
+        rec = []
+
+        def timed(self, ctx, rec=rec):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stepped = step(self, ctx)
+            torch.cuda.synchronize()
+            if stepped:
+                rec.append((self._step, self._loss,
+                            time.perf_counter() - t0))
+            return stepped
+
+        store = _store_dir(int(4 * 4 * cfg.param_count() * 1.5))
+        src = iter(make_source(data_cfg))
+        fabric.LearnerWorker._chief_step = timed
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            if label == "group":
+                t0 = time.perf_counter()
+                group = MeshGroup((1, 1), ("data", "model"), "cuda")
+                group_start_s = time.perf_counter() - t0
+                backend = str(torch.distributed.get_backend())
+                _reset_launches()
+            learner = fabric.LearnerWorker(
+                task, lambda: next(src), store, Registry(), fcfg,
+                device="cuda", mesh=None if group is None else group.mesh,
+                group=group)
+            worker = threading.Thread(target=learner.run, daemon=True)
+            worker.start()
+            deadline = time.monotonic() + 600
+            while not learner.load()["done"] and time.monotonic() < deadline:
+                time.sleep(0.05)
+            learner.retire()
+            worker.join(timeout=60)
+            torch.cuda.synchronize()
+            peaks[label] = torch.cuda.max_memory_allocated() / 1e9
+            if label == "group":
+                ms = ModelStore(store)
+                like = convert.params_to_numpy(cfg, transformer.init_params(
+                    cfg, 0, device="cpu", dtype=cfg.param_dtype))
+                params = convert.params_from_numpy(cfg, ms.load_version(
+                    ms.latest_version(), like={"params": like})["params"],
+                    "cuda")
+                batch = next(iter(make_source(
+                    dataclasses.replace(data_cfg, seed=999))))
+                ev = lt.Evaluator(store, cfg, data_cfg, device="cuda")
+                k3 = ev.score(params, batch)
+                torch.cuda.synchronize()
+                run = _read_launches()
+                dense = ev.score(params, batch, impl="dense")
+                del params
+        finally:
+            fabric.LearnerWorker._chief_step = step
+            shutil.rmtree(store, ignore_errors=True)
+            if group is not None:
+                group.close()
+        if [r[0] for r in rec] != list(range(1, GROUP_STEPS + 1)):
+            fail(f"mesh group learner {label}: steps {[r[0] for r in rec]}")
+        runs[label] = rec
+        del learner
+        _collect()
+    plain = [r[1] for r in runs["plain"]]
+    meshed = [r[1] for r in runs["group"]]
+    if not (all(np.isfinite(plain)) and np.allclose(
+            meshed, plain, rtol=GROUP_LOSS_RTOL, atol=0)):
+        fail(f"mesh group learner: losses {meshed} on the group vs {plain}")
+    if not run["flash_attention"]:
+        fail("mesh group learner: the evaluator launched no K3")
+    if abs(k3 - dense) > EVAL_ABS_TOL:
+        fail(f"mesh group learner: evaluator loss through K3 {k3} vs dense "
+             f"{dense}")
+    emit({"phase": "mesh group", "run": "learner on a mesh group of one "
+          "against plain", "config": f"qwen2-1.5b full width, "
+          f"{MESH_LAYERS} layers ({cfg.param_count() / 1e6:.1f} M), fp32 "
+          f"params and compute, one learner, {GROUP_STEPS} steps of "
+          f"{GROUP_B} x {GROUP_S} tokens, wire chosen by size; plain vs a "
+          "(data 1, model 1) mesh whose group MeshGroup started (TCPStore, "
+          "nccl, rank 0, no follower); then its version scored by the "
+          "training program's evaluator through K3 and dense",
+          "runs_on": "cuda", "group_backend": backend,
+          "group_start_s": group_start_s,
+          "losses_plain": plain, "losses_group": meshed,
+          "loss_max_rel": float(np.max(np.abs(np.array(meshed)
+                                              / np.array(plain) - 1))),
+          "loss_rtol": GROUP_LOSS_RTOL,
+          "step_s_plain": [r[2] for r in runs["plain"]],
+          "step_s_group": [r[2] for r in runs["group"]],
+          "cuda_peak_gb_plain": peaks["plain"],
+          "cuda_peak_gb_group": peaks["group"],
+          "version_loss_k3": k3, "version_loss_dense": dense,
+          "eval_abs_tol": EVAL_ABS_TOL, "launches": run,
+          "device": device_line})
+    return run
+
+
+def phase_mesh_group(device_line: str) -> dict:
+    """b) a learner on a mesh group of one on the card; a) the training
+    program (2 learners, the chief killed) on a (2, 1) mesh of two gloo
+    processes on the host's CPU, at the tiny preset's width. Returns the
+    launches of b)'s path."""
+    from repro_torch.launch import train as lt
+    run = _group_learner(device_line)
+    _train_program(device_line, mesh_shape=(2, 1), device="cpu",
+                   phase="mesh group", cfg=lt.LM_TINY)
+    return {"mesh group learner qwen2-1.5b 4 layers, evaluator": run}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2749,8 +2920,9 @@ def main(argv=None) -> int:
     phase_build()
     records = phase_kernels()
     # Launches on the main path: the engine runs of phases 4-7, the
-    # training programs of phases 8 and 10, the sharded prefill of phase 9
-    # and the examples of phase 11, each path's counters reset just
+    # training programs of phases 8 and 10 and the mesh group's learner
+    # and evaluator of phase 12, the sharded prefill of phase 9 and the
+    # examples of phase 11, each path's counters reset just
     # before its run and read just after. ``launches`` is their sum;
     # ``launches_by_path`` splits it.
     paths = {**phase_parity(env["nvidia_smi"]),
@@ -2760,7 +2932,8 @@ def main(argv=None) -> int:
              **phase_train(env["nvidia_smi"]),
              **phase_plan(env["nvidia_smi"]),
              **phase_mesh(env["nvidia_smi"]),
-             **phase_examples(env["nvidia_smi"])}
+             **phase_examples(env["nvidia_smi"]),
+             **phase_mesh_group(env["nvidia_smi"])}
     for r in records:
         r["launches_by_path"] = {path: run[r["name"]]
                                  for path, run in paths.items()}

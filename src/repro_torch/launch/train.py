@@ -19,15 +19,17 @@ attention (the kernels have no backward pass); the evaluator scores
 published versions under ``torch.no_grad()`` with ``impl="auto"``,
 which on the card is the prefill flash-attention kernel (K3). Versions
 are published in the JAX package's layout, so either package's learners
-and evaluators read the other's. ``--mesh 1,1`` places every learner's
-state on a ``("data", "model")`` DeviceMesh of the node's device type
-(nccl on the card, gloo with ``--device cpu``): one mesh, built once by
-the supervisor and shared by its learner threads. A torch mesh spans
-one process per device and this program runs in one process, so its
-mesh is 1x1: a larger one raises ("mesh (2, 1) needs 2 devices, the
-process group has 1"). A mesh of N devices is N processes in one group,
-each building ``LearnerWorker(mesh=)`` itself and stepping it on the
-same batches, as ``tests/test_torch_distributed.py`` does on two.
+and evaluators read the other's. ``--mesh D,M`` places every learner's
+state on a ``("data", "model")`` DeviceMesh of D·M ranks: one mesh,
+built once by the supervisor and shared by its learner threads, as the
+JAX program's mesh of D·M local devices is. A torch mesh spans one
+process per device: this process is rank 0, and the supervisor starts
+ranks 1..D·M-1 as follower processes (``train.mesh_group``) that replay
+each learner's collective work on the batches rank 0 draws. With
+``--device cpu`` the ranks are gloo processes; on "cuda" rank r takes
+card r over nccl, and a mesh of more ranks than visible cards raises.
+``--mesh 1,1`` needs no follower: its group of one starts in-process.
+A follower that dies ends the program with an error.
 
 The learner is a *stateful node in the paper-§6 sense*: on restart it
 restores from the latest published version and continues; data nodes and
@@ -41,12 +43,15 @@ the evaluator are stateless and just restart.
         --arch qwen2-1.5b
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --mesh 1,1
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --mesh 2,1 --steps 6
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -58,9 +63,10 @@ from repro_torch.data.pipeline import DataConfig, Prefetcher, make_source
 from repro_torch.models import convert, transformer
 from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.serve.engine import resolve_device
-from repro_torch.sharding.compat import check_mesh, make_mesh
+from repro_torch.sharding.compat import make_mesh, rank_devices
 from repro_torch.train.fabric import (ChaosNode, FabricConfig, LearnerWorker,
                                       ThreadWorkerSpawner, TrainSupervisor)
+from repro_torch.train.mesh_group import MeshGroup
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_step import TrainConfig, make_grad_fn, to_device
 
@@ -97,9 +103,14 @@ class LMTask:
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  device="cuda"):
         self._model_cfg = model_cfg
+        self._train_cfg = train_cfg
         self._device = resolve_device(device)
         self.optimizer = train_cfg.optimizer
         self._compute = make_grad_fn(model_cfg, train_cfg)
+
+    def __reduce__(self):
+        # A mesh follower rebuilds the task on its own card of this type.
+        return LMTask, (self._model_cfg, self._train_cfg, self._device.type)
 
     def init_params(self, seed: int):
         return transformer.init_params(self._model_cfg, seed,
@@ -149,18 +160,24 @@ class FleetSupervisor:
         self._spawn_grace_s = spawn_grace_s
 
     def _make_mesh(self):
-        """The learners' mesh, on the supervisor's device type: built
-        once, before any learner starts, and shared by them all."""
+        """(mesh, group): the learners' mesh, on the supervisor's device,
+        built once, before any learner starts, and shared by them all;
+        for more than one rank, with the group of follower processes that
+        spans it (``MeshGroup``, this process rank 0)."""
         if self._mesh_shape is None:
-            return None
-        names = ("data", "model")[: len(self._mesh_shape)]
-        return make_mesh(tuple(self._mesh_shape), names,
-                         resolve_device(self._device).type)
+            return None, None
+        shape = tuple(self._mesh_shape)
+        names = ("data", "model")[: len(shape)]
+        if math.prod(shape) == 1:
+            return make_mesh(shape, names,
+                             resolve_device(self._device).type), None
+        group = MeshGroup(shape, names, self._device)
+        return group.mesh, group
 
     def run(self):
         spawner = ThreadWorkerSpawner()
         n_learners = self._learners
-        mesh = self._make_mesh()
+        mesh, group = self._make_mesh()
 
         def spawn_fn(name: str):
             idx = int(name.rsplit("-", 1)[1])
@@ -170,17 +187,20 @@ class FleetSupervisor:
             spawner.spawn(name, lambda n, ep: LearnerWorker(
                 self._task, batch_fn, self._store_dir, self._registry,
                 self._fab_cfg, name=n, chief=(idx == 0),
-                device=self._device, mesh=mesh, endpoint=ep))
+                device=self._device, mesh=mesh, group=group, endpoint=ep))
 
         sup = TrainSupervisor(
             self._registry, spawn_fn, expected={"learner": n_learners},
             policy=lp.RestartPolicy(max_restarts=5, backoff_s=0.05),
             spawn_grace_s=self._spawn_grace_s,
-            total_steps=self._fab_cfg.total_steps)
+            total_steps=self._fab_cfg.total_steps,
+            check=None if group is None else group.check)
         try:
             sup.run()
         finally:
             spawner.stop_all()
+            if group is not None:
+                group.close()
 
 
 class Evaluator:
@@ -241,10 +261,10 @@ def build_program(model_cfg: ModelConfig, *, steps: int, ckpt_dir: str,
                   heartbeat_s: float = 0.2, device="cuda") -> lp.Program:
     """The training topology on ``device`` (a CUDA card must exist unless
     ``device="cpu"``), its learners on a ``mesh_shape`` mesh when one is
-    given (a mesh larger than the process group raises here)."""
+    given (a mesh of more ranks than cards raises here)."""
     resolve_device(device)
     if mesh_shape is not None:
-        check_mesh(mesh_shape)
+        rank_devices(mesh_shape, device)
     data_cfg = DataConfig(seq_len=seq_len,
                           batch_size=batch_size // num_data_nodes,
                           vocab_size=model_cfg.vocab_size)
@@ -300,8 +320,9 @@ def main(argv=None):
                          "seconds in; the supervisor restores it from the "
                          "last published version")
     ap.add_argument("--mesh", default=None,
-                    help="e.g. 1,1 -> data=1,model=1: the learners' "
-                         "DeviceMesh; this one process spans 1x1 only")
+                    help="e.g. 2,1 -> data=2,model=1: the learners' "
+                         "DeviceMesh, one process a rank (needs a card a "
+                         "rank on cuda)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; needs a card) or cpu")
     args = ap.parse_args(argv)
@@ -323,8 +344,12 @@ def main(argv=None):
                             kill_after=args.kill_after,
                             mesh_shape=mesh_shape, device=args.device)
     print(program)
+    # The mesh's followers are not restarted: their loss ends the program.
     launcher = lp.ThreadLauncher(
-        restart_policy=lp.RestartPolicy(max_restarts=2))
+        restart_policy=lp.RestartPolicy(max_restarts=2),
+        per_group_restart=({"supervisor": lp.NO_RESTART}
+                           if mesh_shape and math.prod(mesh_shape) > 1
+                           else None))
     launcher.launch(program)
     launcher.wait()
     if launcher.fatal_failures:
@@ -332,4 +357,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    # From the module's own name, so that the task a mesh's followers
+    # unpickle is repro_torch.launch.train.LMTask, not __main__'s.
+    from repro_torch.launch.train import main as _main
+    _main()

@@ -5,7 +5,8 @@
 devices: one process per device, each in the default process group. A
 one-device mesh needs no launcher, so a group of size 1 is started here
 when none exists; a larger mesh needs its processes' group first (one
-``init_process_group`` per rank).
+``start_group`` per rank, each with its rank's device from
+``rank_devices``; ``train.mesh_group`` starts them from one controller).
 
 ``planning_mesh`` builds a mesh of any size in one process, for tracing
 only: its process group is ``torch.distributed``'s fake backend, which
@@ -24,6 +25,7 @@ on each rank's local shards and talks over one axis's process group
 
 from __future__ import annotations
 
+import datetime
 import math
 from typing import Sequence
 
@@ -44,7 +46,44 @@ def _drop_fake_group() -> None:
         dist.destroy_process_group()
 
 
-def check_mesh(axis_shapes: Sequence[int]) -> None:
+def rank_devices(axis_shapes: Sequence[int], device) -> list:
+    """Each rank's device, rank 0 first, for a mesh of ``axis_shapes``
+    on ``device``: every rank on the CPU, or on "cuda" rank r on card r
+    (``RuntimeError`` when fewer cards are visible). Two ranks never
+    share a card: NCCL refuses two ranks on one device, and gloo's
+    functional collectives, which DTensor calls, crash on CUDA tensors
+    (``scripts/torch_probe_gloo_cuda.py``)."""
+    device = torch.device(device)
+    n_need = math.prod(axis_shapes)
+    if device.type != "cuda":
+        return [device] * n_need
+    n_have = torch.cuda.device_count()
+    if n_have < n_need:
+        raise RuntimeError(
+            f"mesh {tuple(axis_shapes)} needs {n_need} cuda devices, "
+            f"{n_have} visible (one rank a card)")
+    return [torch.device("cuda", r) for r in range(n_need)]
+
+
+def start_group(store, rank: int, devices: Sequence[torch.device],
+                timeout_s: float) -> torch.device:
+    """Join the default process group as ``rank`` of ``len(devices)``
+    ranks that meet at ``store``: gloo on the CPU; on cards nccl, with
+    gloo for CPU tensors (the command channel). Returns this rank's
+    device, made the current card on "cuda"."""
+    device = devices[rank]
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    _drop_fake_group()
+    dist.init_process_group(
+        "gloo" if device.type == "cpu" else "cuda:nccl,cpu:gloo",
+        store=store, rank=rank,
+        world_size=len(devices),
+        timeout=datetime.timedelta(seconds=timeout_s))
+    return device
+
+
+def _check_group(axis_shapes: Sequence[int]) -> None:
     """Raise ``RuntimeError`` when a real mesh of ``axis_shapes`` needs
     more devices than this process's group spans: the running group's
     world size, else 1 (``make_mesh`` starts a group of one)."""
@@ -63,10 +102,9 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
     """A mesh over real devices of ``device_type``. Starts a process
     group of size 1 (nccl on "cuda", gloo on "cpu") when the mesh has one
     device and no group exists; its rendezvous is an in-memory store, so
-    it takes no port. A mesh larger than the group raises
-    (``check_mesh``)."""
+    it takes no port. A mesh larger than the group raises."""
     _drop_fake_group()
-    check_mesh(axis_shapes)
+    _check_group(axis_shapes)
     if not dist.is_initialized():
         dist.init_process_group(
             "nccl" if device_type == "cuda" else "gloo",

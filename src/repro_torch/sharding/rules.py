@@ -188,13 +188,16 @@ def batch_shardings(mesh, batch_tree):
     return tree_lib.tree_map(leaf, batch_tree)
 
 
-def distribute(tree, shardings):
+def distribute(tree, shardings, src_data_rank=None):
     """Place each tensor of ``tree`` on its ``(mesh, placements)`` from
     ``shardings`` (``param_sharding``'s tree): a DTensor holding this
-    rank's shard. Every rank of the mesh passes the same full value and
-    keeps its own shard of it, so nothing is sent."""
+    rank's shard. With ``src_data_rank=None`` every rank of the mesh
+    passes the same full value and keeps its own shard of it, so nothing
+    is sent; with a rank, that rank's value is scattered and the others'
+    are read only for their shape (a batch that each rank drew itself)."""
     return tree_lib.tree_map(
-        lambda t, sh: distribute_tensor(t, sh[0], sh[1], src_data_rank=None),
+        lambda t, sh: distribute_tensor(t, sh[0], sh[1],
+                                        src_data_rank=src_data_rank),
         tree, shardings)
 
 

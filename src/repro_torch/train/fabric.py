@@ -36,6 +36,7 @@ This module ports them onto it, with the serve fleet's survival story:
     ``ckpt.elastic.restore_elastic``; shrunk learners are retired
     gracefully. A respawned chief restores from the last published
     version, so a learner death costs at most ``publish_every`` steps.
+    A ``check`` given to it (a mesh group's) ends the run by raising.
 
 ``ThreadWorkerSpawner``
     The in-process stand-in for "the scheduler restarts the executable":
@@ -57,12 +58,16 @@ optimizer state as DTensors placed by the sharding rules
 sharding context; the error-feedback residual, which only the wire
 reads, stays a local tensor. A recovered learner restores in the store's
 layout, converts (``from_store``) and then reshards. Publishing and the
-gradient wire gather to numpy, as without a mesh. On a mesh of N devices
-every rank builds the learner and steps it in lockstep (the gathers are
-collectives), its ``batch_fn`` giving each rank the same batch, of which
-each rank keeps its shard; ``launch.train`` builds only meshes its one
-process spans (1x1). The sharding context is the process's: the learners
-of one process take turns on it (``_MESH_LOCK``).
+gradient wire gather to numpy, as without a mesh. The work with
+collectives runs through ``on_ranks`` on every rank of the mesh, in
+lockstep. Either every rank builds the learner itself and steps it (rank
+0's batch wins: each rank keeps its shard of it), or, as ``launch.train``
+does on a mesh of more than one process, rank 0 alone runs the learner
+with ``group=`` (a ``train.mesh_group.MeshGroup``) and sends each such
+call to a ``mirror`` of it on every other rank, with the batch and
+arguments rank 0 drew. The sharding context is the process's: the
+learners of one process take turns on it (``train.mesh_group.MESH_LOCK``),
+each holding it across a call and its collectives.
 """
 
 from __future__ import annotations
@@ -92,6 +97,7 @@ from repro_torch.sharding import ShardingCtx, use_sharding
 from repro_torch.sharding.rules import batch_shardings, distribute, full
 from repro_torch.train import grad_compression, tree
 from repro_torch.train import optimizer as opt_lib
+from repro_torch.train.mesh_group import MESH_LOCK
 from repro_torch.train.train_step import to_device
 
 
@@ -137,10 +143,6 @@ def from_store(task, t, device) -> Any:
     load = getattr(task, "state_from_numpy", None)
     return load(t, device) if load is not None else to_device(t, device)
 
-
-# The sharding context and DTensor's implicit replication are the
-# process's: mesh learners of one process run their sharded steps in turn.
-_MESH_LOCK = threading.RLock()
 
 
 def registry_resolver(registry: Any, role: str) -> Callable[[], Any]:
@@ -259,46 +261,84 @@ class LearnerWorker:
     def __init__(self, task, batch_fn: Callable[[], Any], store_dir: str,
                  registry: Any, cfg: FabricConfig, *, name: str = "learner-0",
                  chief: Optional[bool] = None, device="cuda", mesh=None,
-                 endpoint: Optional[str] = None):
-        self._task = task
+                 group=None, endpoint: Optional[str] = None):
         self._batch_fn = batch_fn
         self._registry = registry
+        self._group = group
+        self._peer_clients: dict[str, tuple[str, Any]] = {}
+        self._steps_per_s = 0.0
+        store = ModelStore(store_dir, keep=cfg.keep_versions)
+        self._init_state(task, store, cfg, name, chief,
+                         mesh.device_type if mesh is not None else device,
+                         mesh, store.latest_version())
+        self.incarnation = 0
+        if group is not None:   # the mirrors restore the same version
+            with MESH_LOCK:
+                self.incarnation = group.construct(
+                    name, task=task, store_dir=store_dir, cfg=cfg,
+                    chief=self._chief, version=self._restored_from)
+
+        ctx = get_current_context()
+        ep = endpoint or ctx.endpoint or f"inproc://{name}"
+        self._heartbeater = Heartbeater(
+            registry, name, ep, load_fn=self.load,
+            period_s=cfg.heartbeat_s, stop_event=ctx.stop_event).start()
+
+    @classmethod
+    def mirror(cls, task, store_dir: str, cfg: FabricConfig, *, name: str,
+               chief: bool, mesh, version: Optional[int],
+               incarnation: int) -> "LearnerWorker":
+        """A follower rank's copy of rank 0's learner ``name``: the same
+        state, restored from the same ``version``, on this rank's part of
+        ``mesh``, for ``on_ranks`` calls only (no batch source, registry,
+        heartbeat or store writes)."""
+        self = cls.__new__(cls)
+        self._group = None
+        self._init_state(task, ModelStore(store_dir, keep=cfg.keep_versions),
+                         cfg, name, chief, mesh.device_type, mesh, version)
+        self.incarnation = incarnation
+        return self
+
+    def _init_state(self, task, store: ModelStore, cfg: FabricConfig,
+                    name: str, chief: Optional[bool], device, mesh,
+                    version: Optional[int]) -> None:
+        """The learner's state: ``version`` of ``store`` if one is
+        given, else the task's seeded init, on ``device`` and then
+        resharded onto ``mesh``."""
+        self._task = task
         self._cfg = cfg
         self._name = name
         self._chief = name.endswith("-0") if chief is None else bool(chief)
         self._mesh = mesh
-        self._device = resolve_device(
-            mesh.device_type if mesh is not None else device)
-        self._store = ModelStore(store_dir, keep=cfg.keep_versions)
+        self._device = resolve_device(device)
+        self._store = store
         self._grad_fn = task.grad_fn
         self._lock = threading.Lock()
         self._dead = False
         self._retired = False
         self._done = False
         self._loss: Optional[float] = None
-        self._steps_per_s = 0.0
-        self._peer_clients: dict[str, tuple[str, Any]] = {}
         self._published: Optional[int] = None
         self._restored_from: Optional[int] = None
+        self._held = None
 
         params = to_device(task.init_params(cfg.seed), self._device)
         like = {"params": params, "opt": opt_lib.init_opt_state(params),
                 "ef": tree.tree_map(
                     lambda x: torch.zeros_like(x, dtype=torch.float32),
                     params)}
-        latest = self._store.latest_version()
-        if latest is not None:
+        if version is not None:
             # Recovery/grow path: resume from the last *published* version
             # on this incarnation's device, then reshard onto whatever
             # mesh it runs on. The step loss of a learner death is
             # therefore bounded by publish_every. fill_missing tolerates
             # versions published before the EF residual existed.
             state = from_store(task, restore_elastic(
-                self._store.version_dir(latest), to_store(task, like),
+                self._store.version_dir(version), to_store(task, like),
                 fill_missing=True), self._device)
-            self._step = int(latest)
-            self._restored_from = int(latest)
-            self._published = int(latest)
+            self._step = int(version)
+            self._restored_from = int(version)
+            self._published = int(version)
         else:
             state = like
             self._step = 0
@@ -311,11 +351,10 @@ class LearnerWorker:
         self._start_step = self._step
         self.history: list[tuple[int, float]] = []
 
-        ctx = get_current_context()
-        ep = endpoint or ctx.endpoint or f"inproc://{name}"
-        self._heartbeater = Heartbeater(
-            registry, name, ep, load_fn=self.load,
-            period_s=cfg.heartbeat_s, stop_event=ctx.stop_event).start()
+    def mirror_state(self) -> dict:
+        """What a follower reports of its mirror."""
+        return {"incarnation": self.incarnation, "step": self._step,
+                "restored_from": self._restored_from}
 
     # -- registry-facing -----------------------------------------------------
     def load(self) -> dict:
@@ -343,6 +382,7 @@ class LearnerWorker:
         finds out via TTL), RPCs fail, the run loop exits."""
         self._dead = True
         self._heartbeater.stop(deregister=False)
+        self._drop_mirrors()
 
     def stall(self, seconds: float) -> None:
         self._heartbeater.pause(seconds)
@@ -351,8 +391,16 @@ class LearnerWorker:
         """Graceful scale-down: finish the in-flight call, deregister."""
         self._retired = True
         self._heartbeater.stop(deregister=True)
+        self._drop_mirrors()
 
-    # -- the step's computation ---------------------------------------------
+    def _drop_mirrors(self) -> None:
+        """After the call in flight, the followers free this
+        incarnation's shards; ``on_ranks`` sends no more calls."""
+        if self._group is not None:
+            with MESH_LOCK:
+                self._group.drop(self._name, self.incarnation)
+
+    # -- the step's computation: on every rank of the mesh ------------------
     @contextlib.contextmanager
     def _on_mesh(self):
         """The mesh's sharding context (nothing without a mesh)."""
@@ -362,24 +410,79 @@ class LearnerWorker:
         names = self._mesh.mesh_dim_names
         ctx = ShardingCtx(self._mesh,
                           dp=tuple(a for a in ("pod", "data") if a in names))
-        with _MESH_LOCK, use_sharding(ctx):
+        with MESH_LOCK, use_sharding(ctx):
             yield
+
+    def on_ranks(self, method: str, **kwargs):
+        """``method(**kwargs)`` under the mesh's context, first sent to
+        this learner's mirror on every follower when rank 0 drives them
+        (``group``), so that each rank runs the same collectives. A
+        failure on rank 0 leaves the followers out of step: the group
+        takes no more calls."""
+        with self._on_mesh():
+            if self._group is None:
+                return getattr(self, method)(**kwargs)
+            if self._dead or self._retired:
+                raise ConnectionError(f"{self._name} is dead")
+            self._group.call(self._name, self.incarnation, method, kwargs)
+            try:
+                return getattr(self, method)(**kwargs)
+            except BaseException as exc:
+                self._group.fail(f"{self._name}.{method} failed on rank 0: "
+                                 f"{exc!r}")
+                raise
 
     def _place_params(self, host_params) -> Any:
         params = to_device(host_params, self._device)
         return reshard(params, self._mesh) if self._mesh is not None \
             else params
 
-    def _grads(self, batch) -> tuple:
-        """(loss, gradient tree) at the current params on a numpy batch;
-        on a mesh, the gradients gathered to full tensors."""
+    def _grads(self, batch, params=None, hold: bool = False) -> tuple:
+        """(loss, gradient tree) on a numpy batch at ``params`` (a peer's
+        copy of the chief's, placed first) or the current ones; on a mesh
+        the batch is scattered from rank 0 and the gradients gathered to
+        full tensors. ``hold`` keeps them for ``_update``."""
+        if params is not None:
+            self._params = self._place_params(params)
         batch = to_device(batch, self._device)
         if self._mesh is None:
-            return self._grad_fn(self._params, batch)
-        with self._on_mesh():
-            batch = distribute(batch, batch_shardings(self._mesh, batch))
             loss, grads = self._grad_fn(self._params, batch)
-            return float(full(loss)), gathered(grads)
+        else:
+            batch = distribute(batch, batch_shardings(self._mesh, batch),
+                               src_data_rank=0)
+            loss, grads = self._grad_fn(self._params, batch)
+            loss, grads = full(loss), gathered(grads)
+        self._held = grads if hold else None
+        return float(loss), grads
+
+    def _update(self, strategy: str, payloads: list) -> None:
+        """One optimizer step on the average of the held gradients and
+        the peers' wire ``payloads``. Under int8_ef the held gradients
+        round-trip through this learner's residual, so the aggregate is
+        uniformly quantized and the published EF state is the chief's
+        real residual."""
+        grads, self._held = self._held, None
+        if strategy == "int8_ef":
+            payload, self._ef = grad_compression.compress_tree(
+                grads, self._ef, method="int8_ef")
+            contribs = [grad_compression.decompress_tree(payload,
+                                                         self._device)]
+        else:
+            contribs = [grads]
+        contribs += [grad_compression.decompress_tree(p, self._device)
+                     for p in payloads]
+        n = len(contribs)
+        avg = tree.tree_map(lambda *xs: sum(xs) / n, *contribs)
+        if self._mesh is not None:
+            avg = reshard(avg, self._mesh)
+        self._params, self._opt, _ = opt_lib.apply_updates(
+            self._task.optimizer, self._params, avg, self._opt)
+        self._step += 1
+
+    def _gathered(self, keys: tuple) -> dict:
+        """``{key: full tree}`` of params, opt and/or ef."""
+        state = {"params": self._params, "opt": self._opt, "ef": self._ef}
+        return gathered({k: state[k] for k in keys})
 
     # -- peer RPC surface ----------------------------------------------------
     def compute_grads(self, step: int, params_payload, strategy: str) -> dict:
@@ -392,20 +495,20 @@ class LearnerWorker:
         if self._dead:
             raise ConnectionError(f"{self._name} is dead")
         with self._lock:
-            self._params = self._place_params(params_payload)
             self._step = int(step)
             batch = self._batch_fn()
             if batch is None:
                 raise RuntimeError(f"{self._name}: no batch available")
-            loss, grads = self._grads(batch)
+            loss, grads = self.on_ranks("_grads", batch=batch,
+                                        params=params_payload)
             if strategy == "int8_ef":
                 payload, self._ef = grad_compression.compress_tree(
                     grads, self._ef, method="int8_ef")
             else:
                 payload, _ = grad_compression.compress_tree(
                     grads, None, method="dense")
-            self._loss = float(loss)
-            return {"loss": float(loss), "payload": payload}
+            self._loss = loss
+            return {"loss": loss, "payload": payload}
 
     # -- chief internals -----------------------------------------------------
     def _resolve_strategy(self) -> str:
@@ -441,8 +544,8 @@ class LearnerWorker:
         return None
 
     def _publish(self) -> None:
-        state = to_store(self._task, {"params": self._params,
-                                      "opt": self._opt, "ef": self._ef})
+        state = to_store(self._task, self.on_ranks(
+            "_gathered", keys=("params", "opt", "ef")))
         self._store.publish_version(
             self._step, state,
             metadata={"step": self._step, "loss": self._loss})
@@ -455,30 +558,22 @@ class LearnerWorker:
         peers = self._live_peers()
         fns = []
         if peers:   # the host copy of the weights is only for the wire
-            payload_params = host_tree(self._params)
+            payload_params = host_tree(self.on_ranks(
+                "_gathered", keys=("params",))["params"])
             fns = [lambda c=client: c.futures.compute_grads(
                        self._step, payload_params, strategy)
                    for _, client in peers]
         batch = self._next_batch(ctx)
         if batch is None:
             return False
-        loss, grads = self._grads(batch)
-        if strategy == "int8_ef":
-            # Round-trip the local contribution through our own residual so
-            # the aggregate is uniformly quantized and the published EF
-            # state is the chief's real residual.
-            payload, self._ef = grad_compression.compress_tree(
-                grads, self._ef, method="int8_ef")
-            contribs = [grad_compression.decompress_tree(payload,
-                                                         self._device)]
-        else:
-            contribs = [grads]
-        losses = [float(loss)]
+        loss, _ = self.on_ranks("_grads", batch=batch, hold=True)
+        losses = [loss]
 
         results = hedged_map(fns, hedge_after_s=cfg.hedge_after_s,
                              quorum=len(fns) or None,
                              timeout_s=cfg.peer_timeout_s,
                              return_exceptions=True) if fns else []
+        payloads = []
         for (name, _), res in zip(peers, results):
             if res is None or isinstance(res, BaseException):
                 # Peer failed or timed out: evict it so the next step's
@@ -490,18 +585,10 @@ class LearnerWorker:
                     pass
                 self._peer_clients.pop(name, None)
                 continue
-            contribs.append(grad_compression.decompress_tree(
-                res["payload"], self._device))
+            payloads.append(res["payload"])
             losses.append(float(res["loss"]))
 
-        n = len(contribs)
-        avg = tree.tree_map(lambda *xs: sum(xs) / n, *contribs)
-        if self._mesh is not None:
-            avg = reshard(avg, self._mesh)
-        with self._on_mesh():
-            self._params, self._opt, _ = opt_lib.apply_updates(
-                self._task.optimizer, self._params, avg, self._opt)
-        self._step += 1
+        self.on_ranks("_update", strategy=strategy, payloads=payloads)
         self._loss = float(np.mean(losses))
         self.history.append((self._step, self._loss))
         if (self._step % cfg.publish_every == 0
@@ -693,8 +780,10 @@ class TrainSupervisor:
                  expected: Optional[dict[str, int]] = None,
                  policy: RestartPolicy = RestartPolicy(max_restarts=5),
                  poll_s: float = 0.05, spawn_grace_s: float = 5.0,
-                 total_steps: Optional[int] = None):
+                 total_steps: Optional[int] = None,
+                 check: Optional[Callable[[], None]] = None):
         self._registry = registry
+        self._check = check
         self._spawn_fn = spawn_fn
         self._expected = dict(expected or {})
         self._policy = policy
@@ -824,9 +913,13 @@ class TrainSupervisor:
         return self.stats()
 
     def run(self) -> None:
+        """Poll until the chief is done; ``check`` raising (a lost mesh
+        rank) ends the run with its error."""
         ctx = get_current_context()
         while not ctx.should_stop:
             self.poll()
+            if self._check is not None:
+                self._check()
             if self.done:
                 ctx.stop_program()
                 return

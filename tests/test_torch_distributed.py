@@ -70,11 +70,12 @@ def run_gloo(body: str, world: int, tmp_path, *args) -> list[dict]:
     return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
 
 
-def run_jax(body: str) -> str:
-    """``body`` with the JAX package on 8 placeholder host devices."""
+def run_jax(body: str, devices: int = 8) -> str:
+    """``body`` with the JAX package on ``devices`` placeholder host
+    devices."""
     code = ("import os\n"
             "os.environ['XLA_FLAGS'] = "
-            "'--xla_force_host_platform_device_count=8'\n"
+            f"'--xla_force_host_platform_device_count={devices}'\n"
             "import jax, jax.numpy as jnp, numpy as np\n"
             "from jax.sharding import NamedSharding, PartitionSpec as P\n"
             "from repro.sharding.compat import make_mesh\n"
@@ -392,15 +393,17 @@ from repro_torch.sharding.compat import make_mesh
 from repro_torch.train import fabric
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_step import TrainConfig
-store, shape = ARGS[0], ARGS[1]
+store, shape, batches = ARGS[0], ARGS[1], ARGS[2]
 # fp32 compute: a bf16 product's rounding would hide the comparison.
 cfg = dataclasses.replace(launch_train.LM_TINY, num_layers=2, d_model=64,
                           d_ff=128, compute_dtype="float32")
 task = launch_train.LMTask(cfg, TrainConfig(optimizer=OptimizerConfig(
     lr=1e-3, warmup_steps=2, total_steps=4)), device="cpu")
-# The same batches on every rank: each rank keeps its shard of each.
+# "same": the same batches on every rank; "own": each rank draws its own,
+# and rank 0's must win.
+seed = 7 + (RANK if batches == "own" else 0)
 src = iter(make_source(DataConfig(seq_len=32, batch_size=8,
-                                  vocab_size=cfg.vocab_size, seed=7)))
+                                  vocab_size=cfg.vocab_size, seed=seed)))
 mesh = (None if shape == "none" else make_mesh(
     tuple(int(s) for s in shape.split(",")), ("data", "model"), "cpu"))
 fcfg = fabric.FabricConfig(total_steps=4, batch_size=8, publish_every=2,
@@ -435,9 +438,22 @@ def test_mesh_learner_on_two_ranks_equals_plain_learner(shape, tmp_path):
     the loss history and published versions equal the plain learner's
     (which ``test_torch_train_fabric.py`` holds to the JAX package) up
     to the summation order of a sharded product or a split batch."""
+    _two_ranks_equal_plain(shape, "same", tmp_path)
+
+
+@pytest.mark.parametrize("shape", ["1,2", "2,1"])
+def test_mesh_learner_takes_rank_zero_batch(shape, tmp_path):
+    """C18: each rank's ``batch_fn`` draws a different batch, and the
+    mesh learner still equals the plain learner fed rank 0's batches:
+    the batch is scattered from rank 0, so no global batch is stitched
+    from the ranks' own."""
+    _two_ranks_equal_plain(shape, "own", tmp_path)
+
+
+def _two_ranks_equal_plain(shape, batches, tmp_path):
     plain, mesh = str(tmp_path / "plain"), str(tmp_path / "mesh")
-    (ref,) = run_gloo(_LEARNER_RANK, 1, tmp_path, plain, "none")
-    ranks = run_gloo(_LEARNER_RANK, 2, tmp_path, mesh, shape)
+    (ref,) = run_gloo(_LEARNER_RANK, 1, tmp_path, plain, "none", "same")
+    ranks = run_gloo(_LEARNER_RANK, 2, tmp_path, mesh, shape, batches)
     want_mesh = dict(zip(("data", "model"), map(int, shape.split(","))))
     assert ref["load"]["done"] and ref["load"]["mesh"] is None
     for r in ranks:
@@ -458,3 +474,104 @@ def test_mesh_learner_on_two_ranks_equals_plain_learner(shape, tmp_path):
             assert got[name].dtype == arr.dtype, name
             diff = np.linalg.norm(got[name].astype(np.float64) - arr)
             assert diff <= LEARNER_STATE_RTOL * np.linalg.norm(arr), name
+
+
+# ---------------------------------------------------------------------------
+# C17: a sharded product's rounding at bf16, the port against JAX
+# ---------------------------------------------------------------------------
+
+_TINY = ("dataclasses.replace(launch_train.LM_TINY, num_layers=2, "
+         "d_model=64, d_ff=128)")
+
+_GRADS_RANK = """
+import dataclasses
+from repro_torch.core.discovery import Registry
+from repro_torch.launch import train as launch_train
+from repro_torch.sharding.compat import make_mesh
+from repro_torch.train import fabric, tree
+from repro_torch.train.optimizer import OptimizerConfig
+from repro_torch.train.train_step import TrainConfig
+d, shape = ARGS[0], ARGS[1]
+cfg = """ + _TINY + """      # bf16 compute
+task = launch_train.LMTask(cfg, TrainConfig(optimizer=OptimizerConfig(
+    lr=1e-3, warmup_steps=2, total_steps=4)), device="cpu")
+batch = dict(np.load(f"{d}/batch.npz"))
+mesh = (None if shape == "none" else make_mesh(
+    tuple(int(s) for s in shape.split(",")), ("data", "model"), "cpu"))
+fcfg = fabric.FabricConfig(total_steps=4, batch_size=8,
+                           grad_strategy="dense")
+learner = fabric.LearnerWorker(task, lambda: batch, f"{d}/store",
+                               Registry(), fcfg, device="cpu", mesh=mesh)
+loss, grads = learner.on_ranks("_grads", batch=batch)
+if RANK == 0:
+    np.savez(f"{d}/port_{shape}.npz", *[x.numpy() for x in tree.leaves(grads)])
+learner.retire()
+print(json.dumps({"loss": loss}))
+"""
+
+
+def _max_leaf_rel(got, want) -> float:
+    """The largest |got - want|_2 / |want|_2 over the leaves."""
+    return max(float(np.linalg.norm(g.astype(np.float64) - w)
+                     / np.linalg.norm(w)) for g, w in zip(got, want))
+
+
+# The port's sharded bf16 gradients may move from its plain ones by at
+# most this many times what the JAX package's move from its own.
+C17_DRIFT_RATIO = 2.0
+
+
+def test_sharded_bf16_gradients_move_as_jax(tmp_path):
+    """C17: at bf16 compute, the first gradients of a learner on a (1,2)
+    mesh move from the plain learner's in both packages, from the same
+    weights (a version the JAX package published, which each learner
+    restores) and the same batch: the JAX package's on its (1,2) host
+    mesh by ~1.6% of a leaf, the port's on 2 gloo ranks by ~2.0%. A
+    sharded product rounds its partial sums to bf16 in both, so the
+    port is held to ``C17_DRIFT_RATIO`` times JAX's measured drift."""
+    out = run_jax(f"""
+    import dataclasses, json
+    from repro.core.discovery import Registry
+    from repro.ckpt.checkpoint import ModelStore
+    from repro.data.pipeline import DataConfig, make_source
+    from repro.launch import train as launch_train
+    from repro.train import fabric, optimizer as opt_lib
+    from repro.train.optimizer import OptimizerConfig
+    from repro.train.train_step import TrainConfig
+    d = "{tmp_path}"
+    cfg = {_TINY}      # bf16 compute
+    task = launch_train.LMTask(cfg, TrainConfig(optimizer=OptimizerConfig(
+        lr=1e-3, warmup_steps=2, total_steps=4)))
+    params = task.init_params(jax.random.key(0))
+    ModelStore(f"{{d}}/store").publish_version(0, fabric.host_tree({{
+        "params": params, "opt": opt_lib.init_opt_state(params),
+        "ef": jax.tree.map(lambda x: np.zeros(x.shape, np.float32),
+                           params)}}), metadata={{"step": 0}})
+    batch = next(iter(make_source(DataConfig(
+        seq_len=32, batch_size=8, vocab_size=cfg.vocab_size, seed=7))))
+    np.savez(f"{{d}}/batch.npz", **batch)
+    fcfg = fabric.FabricConfig(total_steps=4, batch_size=8,
+                               grad_strategy="dense")
+    grads = []
+    for mesh in (None, make_mesh((1, 2), ("data", "model"))):
+        learner = fabric.LearnerWorker(task, lambda: batch, f"{{d}}/store",
+                                       Registry(), fcfg, mesh=mesh)
+        _, g = learner._grad_jit(learner._params, batch)
+        grads.append(jax.tree.leaves(fabric.host_tree(g)))
+        learner.retire()
+    np.savez(f"{{d}}/jax_plain.npz", *grads[0])
+    np.savez(f"{{d}}/jax_mesh.npz", *grads[1])
+    """, devices=2)
+    run_gloo(_GRADS_RANK, 1, tmp_path, tmp_path, "none")
+    run_gloo(_GRADS_RANK, 2, tmp_path, tmp_path, "1,2")
+
+    def leaves(name):
+        with np.load(tmp_path / f"{name}.npz") as z:
+            return [z[k] for k in z.files]
+
+    jax_drift = _max_leaf_rel(leaves("jax_mesh"), leaves("jax_plain"))
+    port_drift = _max_leaf_rel(leaves("port_1,2"), leaves("port_none"))
+    print(f"C17 bf16 (1,2) max leaf drift: jax {jax_drift:.4g}, "
+          f"port {port_drift:.4g}")
+    assert 0 < port_drift <= C17_DRIFT_RATIO * jax_drift, (port_drift,
+                                                           jax_drift)

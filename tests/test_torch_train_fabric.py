@@ -716,14 +716,24 @@ def test_mesh_training_equals_plain_training(tmp_path, no_group_left):
 
 
 def test_build_program_refuses_a_mesh_and_a_missing_card(tmp_path):
-    """A mesh larger than the process group raises the mesh node's
-    ``RuntimeError`` when the program is built; so does a missing card."""
-    with pytest.raises(RuntimeError, match=r"mesh \(2, 1\) needs 2 devices"):
-        launch_train.build_program(launch_train.LM_TINY, steps=2,
-                                   ckpt_dir=str(tmp_path),
-                                   mesh_shape=(2, 1), device="cpu")
+    """A cuda mesh of more ranks than visible cards (one rank a card)
+    raises, naming both counts, when the program is built; so does a
+    missing card. A CPU mesh of any size runs as gloo processes
+    (``test_torch_mesh_program.py``)."""
+    from repro_torch.sharding.compat import rank_devices
+    n = torch.cuda.device_count()
+    shape = (n + 1, 1)
+    fewer = rf"mesh \({n + 1}, 1\) needs {n + 1} cuda devices, {n} visible"
+    with pytest.raises(RuntimeError, match=fewer):
+        rank_devices(shape, "cuda")
     if torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match=fewer):
+            launch_train.build_program(launch_train.LM_TINY, steps=2,
+                                       ckpt_dir=str(tmp_path),
+                                       mesh_shape=shape)
         return
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        launch_train.build_program(launch_train.LM_TINY, steps=2,
-                                   ckpt_dir=str(tmp_path))
+    for mesh_shape in (None, shape):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launch_train.build_program(launch_train.LM_TINY, steps=2,
+                                       ckpt_dir=str(tmp_path),
+                                       mesh_shape=mesh_shape)
