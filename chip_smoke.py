@@ -1,5 +1,6 @@
 """Prove the PyTorch port runs on one NVIDIA GPU: build, check, serve, train,
-plan, train on a mesh, run the examples and train on a mesh of processes.
+plan, train on a mesh, run the examples, train on a mesh of processes and
+serve a mesh node.
 
     python3 chip_smoke.py
 
@@ -82,7 +83,7 @@ each of which ends the run with a non-zero exit on failure:
    with ``--mesh 1,1``, and serve_lm at full-width bf16 Qwen2-1.5B,
    flat and paged, every request served at its length;
 12. mesh group: one learner at Qwen2-1.5B's width cut to 4 layers, at
-   fp32, plain and on a mesh whose group ``train.mesh_group.MeshGroup``
+   fp32, plain and on a mesh whose group ``sharding.group.MeshGroup``
    starts as the training program does for a mesh of processes (world 1
    over nccl on the card: two ranks cannot share it), whose losses must
    equal the plain learner's within 1e-5 (step times, CUDA peaks), its
@@ -90,7 +91,25 @@ each of which ends the run with a non-zero exit on failure:
    phase 8's training program at the tiny preset's width on a (2, 1)
    mesh of two gloo processes on the host's CPU (the program rank 0, one
    follower it starts), where the chief's respawn must restore onto the
-   mesh.
+   mesh;
+13. mesh node: a ``MeshWorkerNode`` serving ``MeshService`` (defined in
+   this file: ``matmul`` through ``sharding.collective_matmul``, ``score``
+   the LM loss with params placed by the sharding rules). On the card, at
+   Qwen2-1.5B's width cut to 4 layers in bf16 on 8 x 1024 tokens, through
+   the node at (1, 1) and through a ``MeshGroup`` of one over nccl: each
+   score through K3 within a bf16 ulp of the dense path's loss, each
+   matmul of plain ``torch.matmul``'s (call times, CUDA peaks); on the
+   host CPU, the node on a (2, 2) mesh of 4 gloo processes (the node's
+   process rank 0, three followers it starts, each re-running this file
+   as ``__mp_main__``), whose 8 replies must equal the single-process
+   service's within fp32 tolerance, and whose program must end with an
+   error naming the rank within 60 s of a follower's kill.
+
+Phase 9 also reads ``scripts/torch_kernel_adjusted.py`` on
+falcon-mamba-7b train_4k: started with the smoke in a process of its
+own (its traces walk the plain scan step by step for minutes of host
+CPU), its kernelizable byte fraction must be above 0 and its adjusted
+memory term no larger than the one it scales.
 
 Prints JSON lines; the one before the last is the ``{"kernels": ...}``
 record, the last ``{"ok": true, "device": {...}}``. Exits non-zero, and
@@ -108,6 +127,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2212,6 +2232,65 @@ def _dry_run(device_line: str) -> None:
             fail(f"plan: {arch} {shape} was {rec['status']}")
 
 
+# The kernel-adjusted roofline (scripts/torch_kernel_adjusted.py) of a
+# cell whose memory term the plain scan dominates. Its 1- and
+# 2-superblock traces walk the scan's 4096 steps a layer in 8
+# microbatches under fake tensors: minutes of host CPU, so the script
+# starts with the smoke, in a session of its own, and phase 9 reads it.
+KA_CELL = ("falcon-mamba-7b", "train_4k")
+KA_WAIT_S = 900.0                # from its start to phase 9's read
+
+
+def _start_kernel_adjusted() -> dict:
+    """Start ``torch_kernel_adjusted.py`` on ``KA_CELL``; it is killed
+    when the smoke exits."""
+    import atexit
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    result = Path(tempfile.mkdtemp(prefix="kernel-adjusted-")) / "ka.json"
+    log = open(out / "kernel_adjusted.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "scripts" / "torch_kernel_adjusted.py"),
+         *KA_CELL, "--json", str(result)], stdout=log,
+        stderr=subprocess.STDOUT, cwd=ROOT, start_new_session=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1"))
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+    atexit.register(stop)
+    return {"proc": proc, "result": result, "t0": time.monotonic(),
+            "log": out / "kernel_adjusted.log"}
+
+
+def _kernel_adjusted(job: dict, device_line: str) -> None:
+    """The kernel-adjusted memory term of ``KA_CELL``: the fraction
+    of a superblock's bytes that the kernels keep on chip must be above
+    0, and the adjusted memory term no larger than the one it scales."""
+    proc = job["proc"]
+    try:
+        waited = time.monotonic()
+        proc.wait(timeout=max(KA_WAIT_S - (waited - job["t0"]), 1.0))
+    except subprocess.TimeoutExpired:
+        fail(f"plan: torch_kernel_adjusted.py on {KA_CELL} ran over "
+             f"{KA_WAIT_S} s")
+    if proc.returncode != 0:
+        fail(f"plan: torch_kernel_adjusted.py exited {proc.returncode}: "
+             f"{job['log'].read_text()[-2000:]}")
+    r = json.loads(job["result"].read_text())
+    emit({"phase": "plan", "run": "kernel-adjusted roofline "
+          "(scripts/torch_kernel_adjusted.py), started with the smoke",
+          **r, "wall_s": time.monotonic() - job["t0"],
+          "waited_s": time.monotonic() - waited, "device": device_line})
+    if not r["fraction"] > 0:
+        fail(f"plan: kernel-adjusted fraction {r['fraction']} on {KA_CELL}")
+    if not r["memory_s_adjusted"] <= r["memory_s"]:
+        fail(f"plan: adjusted memory term {r['memory_s_adjusted']} above "
+             f"{r['memory_s']}")
+
+
 def _place(tree, mesh):
     """Each tensor of ``tree`` as a DTensor on the 1x1 mesh, placed by
     the rules, sharing its storage."""
@@ -2375,10 +2454,11 @@ def _plan_prefill(mesh, device_line) -> dict:
     return rec
 
 
-def phase_plan(device_line: str) -> dict:
+def phase_plan(device_line: str, kernel_adjusted: dict) -> dict:
     """Returns K3's launches in the sharded prefill, by path name."""
     from repro_torch.launch.mesh import make_local_mesh
     _dry_run(device_line)
+    _kernel_adjusted(kernel_adjusted, device_line)
     mesh = make_local_mesh()                      # 1x1, nccl
     _plan_train(mesh, device_line)
     _reset_launches()
@@ -2783,7 +2863,7 @@ def _group_learner(device_line: str) -> dict:
     from repro_torch.launch import train as lt
     from repro_torch.models import convert, transformer
     from repro_torch.train import fabric
-    from repro_torch.train.mesh_group import MeshGroup
+    from repro_torch.sharding.group import MeshGroup
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.train_step import TrainConfig
     cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
@@ -2906,6 +2986,278 @@ def phase_mesh_group(device_line: str) -> dict:
     return {"mesh group learner qwen2-1.5b 4 layers, evaluator": run}
 
 
+# ---------------------------------------------------------------------------
+# 13. mesh node: MeshWorkerNode over a mesh of ranks, one controller
+# ---------------------------------------------------------------------------
+
+# a) on the host CPU: a (2, 2) mesh of 4 gloo processes, the tiny preset's
+# width at 2 layers, fp32; each reply within fp32 tolerance of the
+# unsharded single-process service's. b) on the card: Qwen2-1.5B's width
+# cut to MESH_LAYERS, bf16, 8 x 1024 tokens, through the node at (1, 1)
+# and through a MeshGroup of one over nccl.
+NODE_SHAPE = (2, 2)
+NODE_B, NODE_S = 8, 1024
+NODE_REQUESTS = 8                # alternately matmul and score
+NODE_FP32_TOL = 1e-5             # |got - want| / max|want|; loss relative
+NODE_BF16_TOL = 2.0 ** -7        # one bf16 ulp at the value, relative
+NODE_KILL_S = 60.0               # a follower's death to the program's error
+
+
+class MeshService:
+    """Phase 13's service: ``matmul`` runs ``sharding.collective_matmul``
+    with its weight column-sharded over "model", ``score`` the LM loss of
+    a model whose params the sharding rules place on the mesh. Weights
+    from ``seed``; without a mesh, plain tensors on ``device``."""
+
+    def __init__(self, cfg, seed: int, w_shape, mesh=None, device="cpu"):
+        from repro_torch.models import layers, transformer
+        from repro_torch.sharding.rules import (Spec, distribute,
+                                                param_sharding, placements)
+        self._cfg, self._mesh = cfg, mesh
+        self._device = torch.device(mesh.device_type if mesh is not None
+                                    else device)
+        dtype = layers.to_dtype(cfg.compute_dtype)
+        gen = torch.Generator().manual_seed(seed)
+        w = (torch.randn(w_shape, generator=gen) / w_shape[0] ** 0.5).to(
+            self._device, dtype)
+        params = transformer.init_params(cfg, seed, device=self._device,
+                                         dtype=dtype)
+        if mesh is None:
+            self._w, self._params = w, params
+        else:
+            self._w = distribute({"w": w}, {"w": (mesh, placements(
+                mesh, Spec(None, "model")))})["w"]
+            self._params = distribute(params, param_sharding(params, mesh))
+
+    def matmul(self, x):
+        from repro_torch.sharding.collective_matmul import collective_matmul
+        x = torch.from_numpy(np.asarray(x)).to(self._device, self._w.dtype)
+        y = (torch.matmul(x, self._w) if self._mesh is None else
+             collective_matmul(x, self._w, self._mesh).full_tensor())
+        return y.float().cpu().numpy()
+
+    def score(self, tokens, impl: str = "auto") -> float:
+        from repro_torch.launch import cells
+        from repro_torch.models import transformer
+        from repro_torch.sharding import use_sharding
+        from repro_torch.sharding.rules import distribute
+        t = torch.from_numpy(np.asarray(tokens)).to(self._device)
+        batch = {"tokens": t, "labels": t}
+        with torch.no_grad():
+            if self._mesh is None:
+                return float(transformer.loss_fn(self._cfg, self._params,
+                                                 batch, impl=impl)[0])
+            with use_sharding(cells.sharding_ctx(self._mesh)):
+                loss, _ = transformer.loss_fn(
+                    self._cfg, self._params,
+                    distribute(batch, cells.batch_shardings(self._mesh,
+                                                            batch)),
+                    impl=impl)
+                return float(loss.full_tensor())
+
+
+class _NodeClient:
+    """Sends ``requests`` to the node, keeps each reply and its wall time
+    in ``out`` (a namespace: a node's dict and list arguments arrive as
+    copies), then ``then(out)`` (by default: stop the program)."""
+
+    def __init__(self, svc, requests, out, then=None):
+        self._svc, self._requests, self._out = svc, requests, out
+        self._then = then
+
+    def run(self):
+        from repro_torch import core as lp
+        for method, arg in self._requests:
+            t0 = time.perf_counter()
+            self._out.replies.append(getattr(self._svc, method)(arg))
+            self._out.call_s.append(time.perf_counter() - t0)
+        (self._then or (lambda out: lp.stop_program()))(self._out)
+
+
+def _replies():
+    import types
+    return types.SimpleNamespace(replies=[], call_s=[])
+
+
+def _node_requests(cfg, B: int, S: int, D: int, n: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [("matmul", rng.standard_normal((B, S, D)).astype(np.float32))
+            if i % 2 == 0 else
+            ("score", rng.integers(0, cfg.vocab_size, (B, S)).astype(
+                np.int32)) for i in range(n)]
+
+
+def _node_program(cfg, w_shape, requests, resources, then=None):
+    from repro_torch import core as lp
+    out = _replies()
+    p = lp.Program("mesh-node")
+    with p.group("svc"):
+        svc = p.add_node(lp.MeshWorkerNode(MeshService, cfg, 0, w_shape))
+    with p.group("client"):
+        p.add_node(lp.PyNode(_NodeClient, svc, requests, out, then))
+    return p, {"svc": resources}, out
+
+
+def _call_medians(requests, call_s) -> dict:
+    """Each method's median call time after its first call (the first
+    matmul also waits for the node to come up)."""
+    by = {}
+    for (method, _), t in zip(requests, call_s):
+        by.setdefault(method, []).append(t)
+    return {m: float(np.median(ts[1:])) for m, ts in by.items()}
+
+
+def _replies_within(got, want, tol: float) -> float:
+    """The worst relative error of ``got`` against ``want``; fails above
+    ``tol``."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        if isinstance(w, float):
+            err = abs(g - w) / abs(w)
+        else:
+            err = float(np.abs(g - w).max() / np.abs(w).max())
+        if not np.isfinite(err) or err > tol:
+            fail(f"mesh node: a reply is {err} off the plain service's "
+                 f"(tolerance {tol})")
+        worst = max(worst, err)
+    return worst
+
+
+def _node_on_host(device_line: str) -> None:
+    """a) the (2, 2) node of 4 gloo processes on the host CPU: 8 replies
+    against the single-process service; then a follower killed."""
+    import dataclasses
+
+    from repro_torch import core as lp
+    from repro_torch.core.nodes import mesh as mesh_node
+    from repro_torch.launch import train as lt
+    cfg = dataclasses.replace(lt.LM_TINY, num_layers=2,
+                              compute_dtype="float32")
+    D, F = cfg.d_model, 2 * cfg.d_model
+    requests = _node_requests(cfg, 4, 16, D, NODE_REQUESTS, seed=1)
+    res = {"mesh": NODE_SHAPE, "axes": ("data", "model"), "device": "cpu"}
+    t0 = time.perf_counter()
+    p, resources, out = _node_program(cfg, (D, F), requests, res)
+    lp.launch_and_wait(p, resources=resources, timeout_s=300)
+    wall = time.perf_counter() - t0
+    plain = MeshService(cfg, 0, (D, F))
+    worst = _replies_within(out.replies, [
+        getattr(plain, m)(a) for m, a in requests], NODE_FP32_TOL)
+
+    killed = {}
+
+    def kill_follower(_out):
+        killed["pid"] = mesh_node.current_group().pids[0]
+        killed["t"] = time.monotonic()
+        os.kill(killed["pid"], signal.SIGKILL)
+        lp.get_current_context().wait_for_stop()
+
+    p, resources, _ = _node_program(cfg, (D, F), requests[:2], res,
+                                    then=kill_follower)
+    error = None
+    try:
+        lp.launch_and_wait(p, resources=resources, timeout_s=300)
+    except lp.ProgramTestError as exc:
+        error = repr(exc.__cause__)
+        raised_s = time.monotonic() - killed["t"]
+    if error is None or "mesh rank 1" not in error:
+        fail(f"mesh node: a killed follower ended the program with {error}")
+    if raised_s > NODE_KILL_S:
+        fail(f"mesh node: the program ended {raised_s} s after the kill")
+    emit({"phase": "mesh node", "run": "a) MeshWorkerNode on a (2, 2) mesh "
+          "of 4 gloo processes on the host CPU against the single-process "
+          "service, then a follower killed", "config": "tiny preset width, "
+          f"2 layers, fp32; matmul [4, 16, {D}] x [{D}, {F}]",
+          "requests": NODE_REQUESTS, "wall_s": wall, "call_s": out.call_s,
+          "worst_rel_err": worst, "tolerance": NODE_FP32_TOL,
+          "kill_error": error, "kill_to_error_s": raised_s,
+          "device": device_line})
+
+
+def _node_on_card(device_line: str) -> dict:
+    """b) the service at Qwen2-1.5B's width on the card: through the node
+    at (1, 1), then on a MeshGroup of one over nccl; each route's K3
+    launches, the loss through K3 against the dense path at bf16, the
+    matmul against plain, each call's wall time and the CUDA peak."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import core as lp
+    from repro_torch.core.nodes import mesh as mesh_node
+    from repro_torch.sharding.group import MeshGroup
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
+                              num_layers=MESH_LAYERS,
+                              compute_dtype="bfloat16")
+    D, F = cfg.d_model, cfg.d_ff
+    requests = _node_requests(cfg, NODE_B, NODE_S, D, 6, seed=2)
+    routes, paths = {}, {}
+    for route in ("node (1, 1)", "group of one"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if route == "node (1, 1)":
+            p, resources, out = _node_program(
+                cfg, (D, F), requests, {"mesh": (1, 1), "device": "cuda"})
+            _reset_launches()
+            lp.launch_and_wait(p, resources=resources, timeout_s=600)
+            torch.cuda.synchronize()
+            run = _read_launches()
+            dist.destroy_process_group()
+        else:
+            group = MeshGroup((1, 1), ("data", "model"), "cuda")
+            try:
+                obj, svc = mesh_node.control(group, "svc", MeshService,
+                                             (cfg, 0, (D, F)))
+                out = _replies()
+                _reset_launches()
+                _NodeClient(svc, requests, out, then=lambda o: None).run()
+                torch.cuda.synchronize()
+                run = _read_launches()
+                backend = str(dist.get_backend())
+                mesh_node.release(obj)
+                del obj, svc
+            finally:
+                group.close()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not run["flash_attention"]:
+            fail(f"mesh node {route}: score launched no K3")
+        routes[route] = {"wall_s": wall, "call_s": out.call_s,
+                         "call_s_median": _call_medians(requests, out.call_s),
+                         "cuda_peak_gb": peak, "launches": run,
+                         "replies": out.replies}
+        paths[f"mesh node {route}: qwen2-1.5b width, {MESH_LAYERS} layers, "
+              "score"] = run
+        _collect()
+    plain = MeshService(cfg, 0, (D, F), device="cuda")
+    want = [plain.matmul(a) if m == "matmul" else plain.score(a, "dense")
+            for m, a in requests]
+    del plain
+    _collect()
+    for route, r in routes.items():
+        r["worst_rel_err"] = _replies_within(r.pop("replies"), want,
+                                             NODE_BF16_TOL)
+    emit({"phase": "mesh node", "run": "b) the service through "
+          "MeshWorkerNode at (1, 1) on the card, then on a MeshGroup of one "
+          "(nccl); score through K3 against the dense path",
+          "config": f"qwen2-1.5b full width, {MESH_LAYERS} layers "
+          f"({cfg.param_count() / 1e6:.1f} M), bf16; matmul [{NODE_B}, "
+          f"{NODE_S}, {D}] x [{D}, {F}]; score {NODE_B} x {NODE_S} tokens",
+          "group_backend": backend, "tolerance": NODE_BF16_TOL,
+          "losses_dense": [w for w in want if isinstance(w, float)],
+          "routes": routes, "device": device_line})
+    return paths
+
+
+def phase_mesh_node(device_line: str) -> dict:
+    """b) on the card, then a) on the host CPU. Returns b)'s launches, by
+    path."""
+    paths = _node_on_card(device_line)
+    _node_on_host(device_line)
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -2917,12 +3269,14 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
 
     env = phase_environment()
+    kernel_adjusted = _start_kernel_adjusted()
     phase_build()
     records = phase_kernels()
     # Launches on the main path: the engine runs of phases 4-7, the
     # training programs of phases 8 and 10 and the mesh group's learner
-    # and evaluator of phase 12, the sharded prefill of phase 9 and the
-    # examples of phase 11, each path's counters reset just
+    # and evaluator of phase 12, the sharded prefill of phase 9, the
+    # examples of phase 11 and the mesh node's two routes of phase 13,
+    # each path's counters reset just
     # before its run and read just after. ``launches`` is their sum;
     # ``launches_by_path`` splits it.
     paths = {**phase_parity(env["nvidia_smi"]),
@@ -2930,10 +3284,11 @@ def main(argv=None) -> int:
              **phase_fabric(env["nvidia_smi"]),
              **phase_families(env["nvidia_smi"]),
              **phase_train(env["nvidia_smi"]),
-             **phase_plan(env["nvidia_smi"]),
+             **phase_plan(env["nvidia_smi"], kernel_adjusted),
              **phase_mesh(env["nvidia_smi"]),
              **phase_examples(env["nvidia_smi"]),
-             **phase_mesh_group(env["nvidia_smi"])}
+             **phase_mesh_group(env["nvidia_smi"]),
+             **phase_mesh_node(env["nvidia_smi"])}
     for r in records:
         r["launches_by_path"] = {path: run[r["name"]]
                                  for path, run in paths.items()}

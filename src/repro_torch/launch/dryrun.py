@@ -45,7 +45,8 @@ ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "artifacts", "dryrun_torch")
 
 
-def _probe_cfg(cfg, n_superblocks: int):
+def probe_cfg(cfg, n_superblocks: int):
+    """``cfg`` cut to ``n_superblocks`` repeats of its layer pattern."""
     return dataclasses.replace(cfg,
                                num_layers=n_superblocks * len(cfg.pattern))
 
@@ -61,7 +62,7 @@ def trace(cfg, shape, mesh, plan=None):
 def probe_cost(cfg, shape, mesh, plan) -> analysis.CellCost:
     """The JAX package's depth probe: 1- and 2-superblock traces
     extrapolated to the full depth."""
-    costs = [trace(_probe_cfg(cfg, n), shape, mesh, plan)[1].cost
+    costs = [trace(probe_cfg(cfg, n), shape, mesh, plan)[1].cost
              for n in (1, 2)]
     return analysis.extrapolate(costs[0], costs[1],
                                 cfg.num_layers / len(cfg.pattern))

@@ -24,7 +24,7 @@ state on a ``("data", "model")`` DeviceMesh of D·M ranks: one mesh,
 built once by the supervisor and shared by its learner threads, as the
 JAX program's mesh of D·M local devices is. A torch mesh spans one
 process per device: this process is rank 0, and the supervisor starts
-ranks 1..D·M-1 as follower processes (``train.mesh_group``) that replay
+ranks 1..D·M-1 as follower processes (``sharding.group``) that replay
 each learner's collective work on the batches rank 0 draws. With
 ``--device cpu`` the ranks are gloo processes; on "cuda" rank r takes
 card r over nccl, and a mesh of more ranks than visible cards raises.
@@ -64,9 +64,9 @@ from repro_torch.models import convert, transformer
 from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.serve.engine import resolve_device
 from repro_torch.sharding.compat import make_mesh, rank_devices
+from repro_torch.sharding.group import MeshGroup
 from repro_torch.train.fabric import (ChaosNode, FabricConfig, LearnerWorker,
                                       ThreadWorkerSpawner, TrainSupervisor)
-from repro_torch.train.mesh_group import MeshGroup
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_step import TrainConfig, make_grad_fn, to_device
 

@@ -26,6 +26,10 @@ or on real tensors to check a plan.
     reads and writes every intermediate; a fused program does not).
   * Collectives: each ``_c10d_functional`` collective's result bytes, and
     its ring wire bytes per device (``wire_bytes``).
+  * Breakdowns, for the planning scripts (``scripts/torch_profile_*.py``,
+    ``torch_kernel_adjusted.py``): the bytes by (op, result shapes) and
+    the wire bytes by (collective, result shape, group size); each sums
+    to its total.
   * Memory: the bytes of the arguments' local shards, and the peak of
     live storage the step allocates on top (tracked by weak references,
     each allocation rounded up to the caching allocator's 512 bytes).
@@ -37,6 +41,7 @@ is kept to check that method against the full count.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import threading
@@ -191,6 +196,10 @@ class TraceRecord:
     temp_bytes: int            # peak - arguments - outputs
     collective_result_bytes: dict
     ops: int                   # local ops run
+    # bytes by (op, ((dtype, shape), ...) of its results)
+    bytes_by_op: dict = dataclasses.field(default_factory=dict)
+    # wire bytes by (kind, ((dtype, shape),) of its result, group size)
+    wire_by_collective: dict = dataclasses.field(default_factory=dict)
 
 
 def _tensors(tree) -> list:
@@ -209,6 +218,12 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _shapes(out) -> tuple:
+    """((dtype, shape), ...) of the tensors in ``out``."""
+    return tuple((str(t.dtype).replace("torch.", ""), tuple(t.shape))
+                 for t in _tensors(out))
 
 
 def _alloc(n: int) -> int:
@@ -241,6 +256,8 @@ class _Counter(TorchDispatchMode):
         self.wire = {k: 0.0 for k in COLL_KINDS}
         self.result = {k: 0.0 for k in COLL_KINDS}
         self.counts = {k: 0 for k in COLL_KINDS}
+        self.bytes_by_op: collections.Counter = collections.Counter()
+        self.wire_by: collections.Counter = collections.Counter()
         self.live = 0
         self.peak = 0
         self._known = known_storages     # ids of storages alive before
@@ -295,12 +312,16 @@ class _Counter(TorchDispatchMode):
             size = float(_nbytes(out if isinstance(out, torch.Tensor)
                                  else _tensors(out)[0]))
             if group > 1:
+                wire = wire_bytes(kind, size, group)
                 self.counts[kind] += 1
                 self.result[kind] += size
-                self.wire[kind] += wire_bytes(kind, size, group)
+                self.wire[kind] += wire
+                self.wire_by[(kind, _shapes(out), group)] += wire
         elif not func.is_view and name not in _NO_BYTES:
-            self.bytes += sum(_nbytes(t) for t in _tensors(args)
-                              + _tensors(kwargs) + _tensors(out))
+            n = sum(_nbytes(t) for t in _tensors(args)
+                    + _tensors(kwargs) + _tensors(out))
+            self.bytes += n
+            self.bytes_by_op[(f"{ns}.{name}", _shapes(out))] += n
         if not func.is_view:
             self._track(out)
         return out
@@ -348,5 +369,7 @@ def cost_of(fn: Callable, args: tuple, mesh=None) -> tuple[Any, TraceRecord]:
     return out, TraceRecord(
         cost=cost, argument_bytes=arg_bytes, output_bytes=out_bytes,
         peak_bytes=peak, temp_bytes=max(peak - arg_bytes - out_bytes, 0),
-        collective_result_bytes=dict(counter.result), ops=counter.ops)
+        collective_result_bytes=dict(counter.result), ops=counter.ops,
+        bytes_by_op=dict(counter.bytes_by_op),
+        wire_by_collective=dict(counter.wire_by))
 

@@ -6,7 +6,7 @@ devices: one process per device, each in the default process group. A
 one-device mesh needs no launcher, so a group of size 1 is started here
 when none exists; a larger mesh needs its processes' group first (one
 ``start_group`` per rank, each with its rank's device from
-``rank_devices``; ``train.mesh_group`` starts them from one controller).
+``rank_devices``; ``sharding.group`` starts them from one controller).
 
 ``planning_mesh`` builds a mesh of any size in one process, for tracing
 only: its process group is ``torch.distributed``'s fake backend, which

@@ -63,10 +63,10 @@ collectives runs through ``on_ranks`` on every rank of the mesh, in
 lockstep. Either every rank builds the learner itself and steps it (rank
 0's batch wins: each rank keeps its shard of it), or, as ``launch.train``
 does on a mesh of more than one process, rank 0 alone runs the learner
-with ``group=`` (a ``train.mesh_group.MeshGroup``) and sends each such
+with ``group=`` (a ``sharding.group.MeshGroup``) and sends each such
 call to a ``mirror`` of it on every other rank, with the batch and
 arguments rank 0 drew. The sharding context is the process's: the
-learners of one process take turns on it (``train.mesh_group.MESH_LOCK``),
+learners of one process take turns on it (``sharding.group.MESH_LOCK``),
 each holding it across a call and its collectives.
 """
 
@@ -94,10 +94,10 @@ from repro_torch.data.replay import (ReplayServer, TableConfig,
                                      is_writer_stalled)
 from repro_torch.serve.engine import resolve_device
 from repro_torch.sharding import ShardingCtx, use_sharding
+from repro_torch.sharding.group import MESH_LOCK
 from repro_torch.sharding.rules import batch_shardings, distribute, full
 from repro_torch.train import grad_compression, tree
 from repro_torch.train import optimizer as opt_lib
-from repro_torch.train.mesh_group import MESH_LOCK
 from repro_torch.train.train_step import to_device
 
 
@@ -275,8 +275,9 @@ class LearnerWorker:
         if group is not None:   # the mirrors restore the same version
             with MESH_LOCK:
                 self.incarnation = group.construct(
-                    name, task=task, store_dir=store_dir, cfg=cfg,
-                    chief=self._chief, version=self._restored_from)
+                    name, LearnerWorker.mirror, kwargs=dict(
+                        task=task, store_dir=store_dir, cfg=cfg, name=name,
+                        chief=self._chief, version=self._restored_from))
 
         ctx = get_current_context()
         ep = endpoint or ctx.endpoint or f"inproc://{name}"
@@ -286,8 +287,7 @@ class LearnerWorker:
 
     @classmethod
     def mirror(cls, task, store_dir: str, cfg: FabricConfig, *, name: str,
-               chief: bool, mesh, version: Optional[int],
-               incarnation: int) -> "LearnerWorker":
+               chief: bool, mesh, version: Optional[int]) -> "LearnerWorker":
         """A follower rank's copy of rank 0's learner ``name``: the same
         state, restored from the same ``version``, on this rank's part of
         ``mesh``, for ``on_ranks`` calls only (no batch source, registry,
@@ -296,7 +296,6 @@ class LearnerWorker:
         self._group = None
         self._init_state(task, ModelStore(store_dir, keep=cfg.keep_versions),
                          cfg, name, chief, mesh.device_type, mesh, version)
-        self.incarnation = incarnation
         return self
 
     def _init_state(self, task, store: ModelStore, cfg: FabricConfig,
@@ -353,8 +352,7 @@ class LearnerWorker:
 
     def mirror_state(self) -> dict:
         """What a follower reports of its mirror."""
-        return {"incarnation": self.incarnation, "step": self._step,
-                "restored_from": self._restored_from}
+        return {"step": self._step, "restored_from": self._restored_from}
 
     # -- registry-facing -----------------------------------------------------
     def load(self) -> dict:
@@ -413,24 +411,25 @@ class LearnerWorker:
         with MESH_LOCK, use_sharding(ctx):
             yield
 
+    def _in_mesh(self, method: str, **kwargs):
+        """``method(**kwargs)`` under the mesh's context: what each rank
+        runs for ``on_ranks``."""
+        with self._on_mesh():
+            return getattr(self, method)(**kwargs)
+
     def on_ranks(self, method: str, **kwargs):
         """``method(**kwargs)`` under the mesh's context, first sent to
         this learner's mirror on every follower when rank 0 drives them
-        (``group``), so that each rank runs the same collectives. A
-        failure on rank 0 leaves the followers out of step: the group
-        takes no more calls."""
-        with self._on_mesh():
-            if self._group is None:
-                return getattr(self, method)(**kwargs)
+        (``group``, ``MeshGroup.on_ranks``), so that each rank runs the
+        same collectives. A failure on rank 0 leaves the followers out of
+        step: the group takes no more calls."""
+        if self._group is None:
+            return self._in_mesh(method, **kwargs)
+        with MESH_LOCK:
             if self._dead or self._retired:
                 raise ConnectionError(f"{self._name} is dead")
-            self._group.call(self._name, self.incarnation, method, kwargs)
-            try:
-                return getattr(self, method)(**kwargs)
-            except BaseException as exc:
-                self._group.fail(f"{self._name}.{method} failed on rank 0: "
-                                 f"{exc!r}")
-                raise
+            return self._group.on_ranks(self._name, self.incarnation, self,
+                                        "_in_mesh", (method,), kwargs)
 
     def _place_params(self, host_params) -> Any:
         params = to_device(host_params, self._device)

@@ -666,7 +666,16 @@ def test_train_lm_end_to_end(tmp_path):
     assert CheckpointManager(str(tmp_path)).latest_step() == 12
 
 
-def test_train_cli_survives_the_chief_kill(tmp_path, capsys):
+class _PromptEvaluator(launch_train.Evaluator):
+    """The program's evaluator scraping the store every 0.2 s, not every
+    5 s: a 12-step run on a quiet host can end before a 5 s scrape."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **dict(kwargs, every_s=0.2))
+
+
+def test_train_cli_survives_the_chief_kill(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(launch_train, "Evaluator", _PromptEvaluator)
     launch_train.main([
         "--device", "cpu", "--preset", "tiny", "--learners", "2",
         "--kill-after", "0.5", "--steps", "12", "--publish-every", "2",
