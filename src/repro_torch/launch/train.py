@@ -31,6 +31,11 @@ card r over nccl, and a mesh of more ranks than visible cards raises.
 ``--mesh 1,1`` needs no follower: its group of one starts in-process.
 A follower that dies ends the program with an error.
 
+``--trace-every N`` makes the chief learner trace every Nth step (its
+``train.*`` spans, ``train/fabric.py``); ``--telemetry-dir DIR`` adds a
+``TelemetryHub`` that scrapes the registry and every registered learner
+and writes ``telemetry.json`` and a Perfetto ``trace.json`` there.
+
 The learner is a *stateful node in the paper-§6 sense*: on restart it
 restores from the latest published version and continues; data nodes and
 the evaluator are stateless and just restart.
@@ -45,6 +50,8 @@ the evaluator are stateless and just restart.
     PYTHONPATH=src python -m repro_torch.launch.train --mesh 1,1
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --mesh 2,1 --steps 6
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --steps 6 --trace-every 2 --telemetry-dir /tmp/train-tel
 """
 
 from __future__ import annotations
@@ -258,10 +265,17 @@ def build_program(model_cfg: ModelConfig, *, steps: int, ckpt_dir: str,
                   # heartbeat thread for seconds; that is a stall, not a
                   # death, and should not trigger a respawn.
                   registry_ttl_s: float = 10.0,
-                  heartbeat_s: float = 0.2, device="cuda") -> lp.Program:
+                  heartbeat_s: float = 0.2,
+                  telemetry_dir: Optional[str] = None, trace_every: int = 0,
+                  device="cuda") -> lp.Program:
     """The training topology on ``device`` (a CUDA card must exist unless
     ``device="cpu"``), its learners on a ``mesh_shape`` mesh when one is
-    given (a mesh of more ranks than cards raises here)."""
+    given (a mesh of more ranks than cards raises here).
+
+    ``trace_every=N`` makes the chief trace every Nth step;
+    ``telemetry_dir`` adds a TelemetryHub node that scrapes the registry
+    and the learners registered there and writes ``telemetry.json`` and
+    ``trace.json`` into it."""
     resolve_device(device)
     if mesh_shape is not None:
         rank_devices(mesh_shape, device)
@@ -273,7 +287,7 @@ def build_program(model_cfg: ModelConfig, *, steps: int, ckpt_dir: str,
         num_microbatches=num_micro)
     fab_cfg = FabricConfig(total_steps=steps, batch_size=batch_size,
                            publish_every=publish_every,
-                           heartbeat_s=heartbeat_s)
+                           heartbeat_s=heartbeat_s, trace_every=trace_every)
 
     p = lp.Program(f"train-{model_cfg.name}")
     with p.group("registry"):
@@ -293,6 +307,11 @@ def build_program(model_cfg: ModelConfig, *, steps: int, ckpt_dir: str,
             p.add_node(lp.PyNode(
                 ChaosNode, registry,
                 [("kill", "learner-0", kill_after, 0.0)]))
+    if telemetry_dir is not None:
+        with p.group("telemetry"):
+            p.add_node(lp.PyNode(
+                lp.TelemetryHub, registry, targets=[registry],
+                poll_s=max(heartbeat_s, 0.1), out_dir=telemetry_dir))
     if with_eval:
         with p.group("eval"):
             p.add_node(lp.PyNode(Evaluator, ckpt_dir, model_cfg, data_cfg,
@@ -323,6 +342,11 @@ def main(argv=None):
                     help="e.g. 2,1 -> data=2,model=1: the learners' "
                          "DeviceMesh, one process a rank (needs a card a "
                          "rank on cuda)")
+    ap.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                    help="run a TelemetryHub and write telemetry.json + "
+                         "trace.json (Perfetto) here")
+    ap.add_argument("--trace-every", type=int, default=0, metavar="N",
+                    help="the chief traces every Nth step (0 = off)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; needs a card) or cpu")
     args = ap.parse_args(argv)
@@ -342,7 +366,9 @@ def main(argv=None):
                             learners=args.learners,
                             publish_every=args.publish_every,
                             kill_after=args.kill_after,
-                            mesh_shape=mesh_shape, device=args.device)
+                            mesh_shape=mesh_shape,
+                            telemetry_dir=args.telemetry_dir,
+                            trace_every=args.trace_every, device=args.device)
     print(program)
     # The mesh's followers are not restarted: their loss ends the program.
     launcher = lp.ThreadLauncher(

@@ -7,7 +7,7 @@ This module ports them onto it, with the serve fleet's survival story:
 
 ``LearnerWorker``
     One data-parallel learner. Registers and heartbeats through the
-    ``Registry`` like an engine replica (load reports carry steps/sec and
+    ``Registry`` like an engine replica (load reports carry the step and
     the published model version). The *chief* learner (index 0 — chiefship
     is assigned at spawn, never self-elected, matching the paper's
     scheduler-restarts model) drives synchronous steps: it resolves the
@@ -51,6 +51,20 @@ takes a seed (``init_params(seed)``) where the JAX package takes a
 layout (``state_to_numpy(state)``, ``state_from_numpy(tree, device)``:
 the LM task publishes the JAX package's tree, so either package restores
 the other's versions); without them the state is stored as it is.
+
+The chief traces every ``FabricConfig.trace_every``-th step (numbered
+from 1, as ``history`` and the published versions are): a fresh trace
+whose root ``train.step`` holds ``train.data`` (the wait for a batch),
+``train.grads`` (with ``train.forward``, ``train.backward`` and
+``train.accumulate`` per microbatch from ``train_step.make_grad_fn``,
+then ``train.sync``, the loss read back to the host) and ``train.update``
+(with ``train.optimizer``). On a CUDA device the root carries
+``alloc_retries``, the caching allocator's retries during the step. The
+spans land in the process's ring (``core.telemetry``), on the wall clock;
+an untraced step pays one context-variable read a span. A peer's
+``compute_grads`` carries the trace in its courier envelope, so the
+peer's forward, backward and sync spans join the step's trace; the
+followers of a mesh group record nothing.
 
 A learner given ``mesh=`` (a ``DeviceMesh``) holds its params and
 optimizer state as DTensors placed by the sharding rules
@@ -117,6 +131,7 @@ class FabricConfig:
     sample_timeout_s: float = 1.0
     keep_versions: int = 10
     seed: int = 0
+    trace_every: int = 0               # chief traces every Nth step; 0 off
 
 
 def gathered(t):
@@ -266,7 +281,6 @@ class LearnerWorker:
         self._registry = registry
         self._group = group
         self._peer_clients: dict[str, tuple[str, Any]] = {}
-        self._steps_per_s = 0.0
         store = ModelStore(store_dir, keep=cfg.keep_versions)
         self._init_state(task, store, cfg, name, chief,
                          mesh.device_type if mesh is not None else device,
@@ -360,7 +374,6 @@ class LearnerWorker:
         return {"role": "learner", "chief": self._chief,
                 "step": self._step, "start_step": self._start_step,
                 "version": self._published, "loss": self._loss,
-                "steps_per_s": round(self._steps_per_s, 3),
                 "done": self._done,
                 "mesh": None if mesh is None else dict(
                     zip(mesh.mesh_dim_names, mesh.shape))}
@@ -452,7 +465,9 @@ class LearnerWorker:
             loss, grads = self._grad_fn(self._params, batch)
             loss, grads = full(loss), gathered(grads)
         self._held = grads if hold else None
-        return float(loss), grads
+        with telemetry.span("train.sync"):
+            loss = float(loss)
+        return loss, grads
 
     def _update(self, strategy: str, payloads: list) -> None:
         """One optimizer step on the average of the held gradients and
@@ -474,8 +489,9 @@ class LearnerWorker:
         avg = tree.tree_map(lambda *xs: sum(xs) / n, *contribs)
         if self._mesh is not None:
             avg = reshard(avg, self._mesh)
-        self._params, self._opt, _ = opt_lib.apply_updates(
-            self._task.optimizer, self._params, avg, self._opt)
+        with telemetry.span("train.optimizer"):
+            self._params, self._opt, _ = opt_lib.apply_updates(
+                self._task.optimizer, self._params, avg, self._opt)
         self._step += 1
 
     def _gathered(self, keys: tuple) -> dict:
@@ -562,10 +578,12 @@ class LearnerWorker:
             fns = [lambda c=client: c.futures.compute_grads(
                        self._step, payload_params, strategy)
                    for _, client in peers]
-        batch = self._next_batch(ctx)
+        with telemetry.span("train.data"):
+            batch = self._next_batch(ctx)
         if batch is None:
             return False
-        loss, _ = self.on_ranks("_grads", batch=batch, hold=True)
+        with telemetry.span("train.grads"):
+            loss, _ = self.on_ranks("_grads", batch=batch, hold=True)
         losses = [loss]
 
         results = hedged_map(fns, hedge_after_s=cfg.hedge_after_s,
@@ -587,13 +605,36 @@ class LearnerWorker:
             payloads.append(res["payload"])
             losses.append(float(res["loss"]))
 
-        self.on_ranks("_update", strategy=strategy, payloads=payloads)
+        with telemetry.span("train.update", strategy=strategy):
+            self.on_ranks("_update", strategy=strategy, payloads=payloads)
         self._loss = float(np.mean(losses))
         self.history.append((self._step, self._loss))
         if (self._step % cfg.publish_every == 0
                 or self._step >= cfg.total_steps):
             self._publish()
         return True
+
+    def _alloc_retries(self) -> Optional[int]:
+        """The caching allocator's retries so far (None off CUDA)."""
+        if self._device.type != "cuda":
+            return None
+        return torch.cuda.memory_stats(self._device).get(
+            "num_alloc_retries", 0)
+
+    def _traced_step(self, ctx) -> bool:
+        """``_chief_step``, inside a fresh trace's ``train.step`` span
+        when its number is a multiple of ``trace_every``."""
+        every, k = self._cfg.trace_every, self._step + 1
+        if not every or k % every:
+            return self._chief_step(ctx)
+        with telemetry.activate(telemetry.start_trace()), \
+                telemetry.span("train.step", step=k) as attrs:
+            retries = self._alloc_retries()
+            try:
+                return self._chief_step(ctx)
+            finally:
+                if retries is not None:
+                    attrs["alloc_retries"] = self._alloc_retries() - retries
 
     # -- main loop -----------------------------------------------------------
     def run(self) -> None:
@@ -602,17 +643,9 @@ class LearnerWorker:
             while not (ctx.should_stop or self._dead or self._retired):
                 ctx.wait_for_stop(0.1)
             return
-        t_last = time.monotonic()
         while (self._step < self._cfg.total_steps
                and not (ctx.should_stop or self._dead or self._retired)):
-            stepped = self._chief_step(ctx)
-            now = time.monotonic()
-            if stepped:
-                dt = max(now - t_last, 1e-9)
-                inst = 1.0 / dt
-                self._steps_per_s = (inst if self._steps_per_s == 0.0
-                                     else 0.9 * self._steps_per_s + 0.1 * inst)
-            t_last = now
+            self._traced_step(ctx)
         if self._step >= self._cfg.total_steps and not self._dead:
             self._done = True
             self._heartbeater.beat_now()

@@ -13,6 +13,11 @@ kernels have no backward pass, because the JAX package's kernels have
 none. Master weights are ``cfg.param_dtype`` (fp32) and compute is
 ``cfg.compute_dtype``: the layers cast each weight as they read it, and
 the gradient comes back through that cast in fp32.
+
+Under a sampled trace context (``core.telemetry``) each microbatch
+records ``train.forward``, ``train.backward`` and, with several
+microbatches, ``train.accumulate``, each with its index ``mb``; without
+one each span is a context-variable read.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch.core import telemetry
 from repro_torch.models import layers, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.engine import resolve_device
@@ -93,17 +99,21 @@ def make_loss_fn(model_cfg: ModelConfig, remat: str, resid_tp: bool = False):
 
 
 def _value_and_grad(loss_fn):
-    """``(params, batch) -> (loss, aux, grads)``, all detached; a leaf
-    the loss does not reach gets a zero gradient, as in JAX."""
-    def fn(params, batch):
-        live = tree.tree_map(lambda p: p.detach().requires_grad_(), params)
-        with torch.enable_grad():
-            loss, aux = loss_fn(live, batch)
-        paths, leaves = zip(*tree.leaves_with_path(live))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        by_path = {path: torch.zeros_like(p) if g is None else g
-                   for path, p, g in zip(paths, leaves, grads)}
-        grads = tree.map_with_path(lambda path, _: by_path[path], live)
+    """``(params, batch, mb=0) -> (loss, aux, grads)``, all detached; a
+    leaf the loss does not reach gets a zero gradient, as in JAX. ``mb``
+    names the microbatch in the spans."""
+    def fn(params, batch, mb: int = 0):
+        with telemetry.span("train.forward", mb=mb):
+            live = tree.tree_map(lambda p: p.detach().requires_grad_(),
+                                 params)
+            with torch.enable_grad():
+                loss, aux = loss_fn(live, batch)
+        with telemetry.span("train.backward", mb=mb):
+            paths, leaves = zip(*tree.leaves_with_path(live))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            by_path = {path: torch.zeros_like(p) if g is None else g
+                       for path, p, g in zip(paths, leaves, grads)}
+            grads = tree.map_with_path(lambda path, _: by_path[path], live)
         aux = {k: v.detach() for k, v in aux.items()}
         return loss.detach(), aux, grads
     return fn
@@ -128,18 +138,22 @@ def make_grad_fn(model_cfg: ModelConfig, train_cfg: TrainConfig):
         loss_sum, g_acc = None, None
         for i in range(nm):
             loss, _aux, g = grad_fn(params, tree.tree_map(lambda x: x[i],
-                                                          micro))
-            if g_acc is None:           # 0 + loss and 0 + g: exact
-                loss_sum = loss.float()
-                g_acc = tree.tree_map(lambda b: b.to(acc_dt), g)
-            else:
-                loss_sum = loss_sum + loss
-                tree.tree_map(lambda a, b: a.add_(b.to(acc_dt)), g_acc, g)
-            del g
-        n = torch.tensor(float(nm), dtype=torch.float32,
-                         device=loss_sum.device)
-        grads = tree.tree_map(lambda g: g.div_(n).to(torch.float32), g_acc)
-        loss = loss_sum / n
+                                                          micro), mb=i)
+            with telemetry.span("train.accumulate", mb=i):
+                if g_acc is None:           # 0 + loss and 0 + g: exact
+                    loss_sum = loss.float()
+                    g_acc = tree.tree_map(lambda b: b.to(acc_dt), g)
+                else:
+                    loss_sum = loss_sum + loss
+                    tree.tree_map(lambda a, b: a.add_(b.to(acc_dt)), g_acc,
+                                  g)
+                del g
+                if i == nm - 1:     # the mean, in the last one's span
+                    n = torch.tensor(float(nm), dtype=torch.float32,
+                                     device=loss_sum.device)
+                    grads = tree.tree_map(
+                        lambda g: g.div_(n).to(torch.float32), g_acc)
+                    loss = loss_sum / n
         return loss, {"ce": loss, "aux": torch.zeros_like(loss)}, grads
 
     return compute_grads
