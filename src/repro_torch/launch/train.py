@@ -75,7 +75,8 @@ from repro_torch.sharding.group import MeshGroup
 from repro_torch.train.fabric import (ChaosNode, FabricConfig, LearnerWorker,
                                       ThreadWorkerSpawner, TrainSupervisor)
 from repro_torch.train.optimizer import OptimizerConfig
-from repro_torch.train.train_step import TrainConfig, make_grad_fn, to_device
+from repro_torch.train.train_step import (Replayed, TrainConfig, make_grad_fn,
+                                          to_device)
 
 # A self-contained ~100M-param preset (brief: "train ~100M model").
 LM100M = ModelConfig(
@@ -105,7 +106,13 @@ class DataNode:
 class LMTask:
     """The fabric task for LM pretraining: transformer loss + AdamW, with
     master weights in ``cfg.param_dtype`` drawn on ``device``. Its state
-    goes to the store in the JAX package's layout."""
+    goes to the store in the JAX package's layout.
+
+    The gradient function is ``train_step.Replayed``: the learner updates
+    its parameters in place on a card (``optimizer.apply_updates_``), so
+    from its second step on the pass replays as one CUDA graph. What
+    ``grad_fn`` returns then lives in the graph's memory until the next
+    call; the learner consumes it before then."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  device="cuda"):
@@ -113,7 +120,8 @@ class LMTask:
         self._train_cfg = train_cfg
         self._device = resolve_device(device)
         self.optimizer = train_cfg.optimizer
-        self._compute = make_grad_fn(model_cfg, train_cfg)
+        self._compute = Replayed(make_grad_fn(model_cfg, train_cfg),
+                                 train_cfg.num_microbatches)
 
     def __reduce__(self):
         # A mesh follower rebuilds the task on its own card of this type.

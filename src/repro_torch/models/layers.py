@@ -232,8 +232,10 @@ def embed_tokens(cfg: ModelConfig, p: dict, tokens: torch.Tensor
         x = table[tokens.long()]
     x = shard(x, "dp", None, None)
     if cfg.scale_embed:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                         device=x.device)
+        # A fill on the device, not a copy from the host: a CUDA graph
+        # of the training pass can hold it.
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                           device=x.device)
     return x
 
 

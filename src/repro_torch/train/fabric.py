@@ -45,7 +45,10 @@ This module ports them onto it, with the serve fleet's survival story:
 
 In the port, a learner's params, optimizer state and error-feedback
 residual live on its device (``device=``, a CUDA card unless ``"cpu"``
-is asked for); the wire and the store see numpy. The task's duck type
+is asked for); the wire and the store see numpy. On a card the optimizer
+updates params and state in place (``optimizer.apply_updates_``): what
+reads them (publishing, the wire, ``_gathered``'s callers) copies them
+before the next step. The task's duck type
 takes a seed (``init_params(seed)``) where the JAX package takes a
 ``jax.random`` key. A task may convert its state to and from the store's
 layout (``state_to_numpy(state)``, ``state_from_numpy(tree, device)``:
@@ -57,8 +60,11 @@ from 1, as ``history`` and the published versions are): a fresh trace
 whose root ``train.step`` holds ``train.data`` (the wait for a batch),
 ``train.grads`` (with ``train.forward``, ``train.backward`` and
 ``train.accumulate`` per microbatch from ``train_step.make_grad_fn``,
-then ``train.sync``, the loss read back to the host) and ``train.update``
-(with ``train.optimizer``). On a CUDA device the root carries
+or ``train.replay`` where the pass is replayed from a CUDA graph
+(``train_step.Replayed``, as ``launch.train.LMTask`` wraps it), after
+``train.capture`` on the step that captures it; then ``train.sync``,
+the loss read back to the host) and ``train.update`` (with
+``train.optimizer``). On a CUDA device the root carries
 ``alloc_retries``, the caching allocator's retries during the step. The
 spans land in the process's ring (``core.telemetry``), on the wall clock;
 an untraced step pays one context-variable read a span. A peer's
@@ -490,8 +496,16 @@ class LearnerWorker:
         if self._mesh is not None:
             avg = reshard(avg, self._mesh)
         with telemetry.span("train.optimizer"):
-            self._params, self._opt, _ = opt_lib.apply_updates(
-                self._task.optimizer, self._params, avg, self._opt)
+            if self._device.type == "cuda":
+                # In place: the card holds one copy of p, m and v, and the
+                # parameters stay where a replayed gradient pass reads
+                # them (train_step.Replayed). Off a card no graph reads
+                # them, and the functional update stays.
+                opt_lib.apply_updates_(self._task.optimizer, self._params,
+                                       avg, self._opt)
+            else:
+                self._params, self._opt, _ = opt_lib.apply_updates(
+                    self._task.optimizer, self._params, avg, self._opt)
         self._step += 1
 
     def _gathered(self, keys: tuple) -> dict:

@@ -71,7 +71,46 @@ def _decay_mask(path) -> bool:
 
 @torch.no_grad()
 def apply_updates(cfg: OptimizerConfig, params, grads, state):
-    """One AdamW step. Returns (new_params, new_state, metrics)."""
+    """One AdamW step. Returns (new_params, new_state, metrics) and leaves
+    the arguments as they are; the new moments are fp32."""
+    out = {}
+
+    def fresh(path, p, m, v):
+        out[path] = (torch.empty_like(p),
+                     torch.empty_like(m, dtype=torch.float32),
+                     torch.empty_like(v, dtype=torch.float32))
+        return out[path]
+
+    step, metrics = _adamw(cfg, params, grads, state, fresh)
+    pick = lambda i: tree.map_with_path(  # noqa: E731
+        lambda path, _: out[path][i], params)
+    return pick(0), {"m": pick(1), "v": pick(2), "step": step}, metrics
+
+
+@torch.no_grad()
+def apply_updates_(cfg: OptimizerConfig, params, grads, state) -> dict:
+    """``apply_updates`` in place: each leaf's new p, m and v is written
+    into its own storage, so no second copy of the state is made and
+    every leaf keeps its tensor and address (a replayed gradient pass
+    reads the parameters where they live). The moments must be fp32, as
+    they are beside fp32 master weights. ``state["step"]`` becomes the
+    new step. Returns the metrics."""
+    def own(path, p, m, v):
+        if m.dtype != torch.float32 or v.dtype != torch.float32:
+            raise ValueError(f"in-place AdamW needs fp32 moments, {path} "
+                             f"has {m.dtype} and {v.dtype}")
+        return p, m, v
+
+    state["step"], metrics = _adamw(cfg, params, grads, state, own)
+    return metrics
+
+
+def _adamw(cfg: OptimizerConfig, params, grads, state, into) -> tuple:
+    """The AdamW arithmetic of both entry points, leaf after leaf: each
+    leaf's new p, m and v go into the tensors ``into(path, p, m, v)``
+    names (fresh ones, or the leaf's own). Each first op reads the old
+    value and writes the destination, so either way the same fp32
+    operations run in the same order. Returns (new step, metrics)."""
     device = tree.leaves(params)[0].device
     step = torch.as_tensor(full(state["step"])).to("cpu", torch.int32) + 1
     lr = schedule(cfg, step)
@@ -90,23 +129,16 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state):
     lr_dev = lr.to(device)
 
     def upd(path, p, g, m, v):
+        p_new, m_new, v_new = into(path, p, m, v)
         if scale is not None:
             g = g * scale.to(g.dtype)
         g = g.float()
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        torch.mul(m, b1, out=m_new).add_((1 - b1) * g)
+        torch.mul(v, b2, out=v_new).add_((1 - b2) * g * g)
+        u = (m_new / bc1).div_((v_new / bc2).sqrt_().add_(cfg.eps))
         if cfg.weight_decay and _decay_mask(path):
-            u = u + cfg.weight_decay * p.float()
-        return (p - lr_dev * u).to(p.dtype), m, v
+            u.add_(cfg.weight_decay * p.float())
+        torch.sub(p, u.mul_(lr_dev), out=p_new)
 
-    out = {}
-
-    def record(path, *leaves):
-        out[path] = upd(path, *leaves)
-
-    tree.map_with_path(record, params, grads, state["m"], state["v"])
-    pick = lambda i: tree.map_with_path(  # noqa: E731
-        lambda path, _: out[path][i], params)
-    new_state = {"m": pick(1), "v": pick(2), "step": step}
-    return pick(0), new_state, {"grad_norm": gnorm, "lr": lr}
+    tree.map_with_path(upd, params, grads, state["m"], state["v"])
+    return step, {"grad_norm": gnorm, "lr": lr}

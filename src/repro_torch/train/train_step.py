@@ -14,15 +14,32 @@ none. Master weights are ``cfg.param_dtype`` (fp32) and compute is
 ``cfg.compute_dtype``: the layers cast each weight as they read it, and
 the gradient comes back through that cast in fp32.
 
-Under a sampled trace context (``core.telemetry``) each microbatch
-records ``train.forward``, ``train.backward`` and, with several
-microbatches, ``train.accumulate``, each with its index ``mb``; without
-one each span is a context-variable read.
+``Replayed`` wraps a gradient function for a caller that updates its
+parameter tensors in place (the learner's task, ``launch.train.LMTask``,
+beside ``optimizer.apply_updates_``): on a CUDA device it captures the
+pass once into a ``torch.cuda.CUDAGraph`` and replays it on later calls
+whose input allows it. Every microbatch's forward and remat backward,
+the fp32 accumulation and the mean are then issued as one graph launch
+instead of one kernel launch at a time from Python. The kernels and
+their arithmetic are the eager pass's. ``make_grad_fn`` and
+``make_train_step`` stay eager.
+
+Under a sampled trace context (``core.telemetry``) each microbatch of an
+eager pass records ``train.forward``, ``train.backward`` and, with
+several microbatches, ``train.accumulate``, each with its index ``mb``;
+a replayed pass records one ``train.replay`` in their place, and the
+call that captures the graph ``train.capture`` before it; without a
+context each span is a context-variable read. The process's counters
+``train.graph.captures``, ``train.graph.replays`` and
+``train.graph.eager`` count the calls of each kind (a capturing call
+counts as a replay too).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -32,6 +49,7 @@ from repro_torch.core import telemetry
 from repro_torch.models import layers, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.engine import resolve_device
+from repro_torch.sharding import current_ctx
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import tree
 
@@ -149,14 +167,132 @@ def make_grad_fn(model_cfg: ModelConfig, train_cfg: TrainConfig):
                                   g)
                 del g
                 if i == nm - 1:     # the mean, in the last one's span
-                    n = torch.tensor(float(nm), dtype=torch.float32,
-                                     device=loss_sum.device)
+                    # A fill on the device: a CUDA graph can hold it,
+                    # where a tensor made from a host value is a copy
+                    # from pageable memory that capture refuses.
+                    n = torch.full((), float(nm), dtype=torch.float32,
+                                   device=loss_sum.device)
                     grads = tree.tree_map(
                         lambda g: g.div_(n).to(torch.float32), g_acc)
                     loss = loss_sum / n
         return loss, {"ce": loss, "aux": torch.zeros_like(loss)}, grads
 
     return compute_grads
+
+
+def _graph_inputs(params, batch):
+    """(parameter leaves, batch leaves with their paths) when a CUDA
+    graph can take the call: every leaf a plain tensor (not a DTensor)
+    on one CUDA device, and no sharding context active (under one the
+    layers place their tensors on its mesh, and ``resid_tp`` acts).
+    Else None."""
+    if current_ctx() is not None:
+        return None
+    leaves = tree.leaves(params)
+    inputs = tree.leaves_with_path(batch)
+    if not leaves or leaves[0].device.type != "cuda":
+        return None
+    dev = leaves[0].device
+    if all(type(x) is torch.Tensor and x.device == dev
+           for x in leaves + [x for _, x in inputs]):
+        return leaves, inputs
+    return None
+
+
+class Replayed:
+    """``compute(params, batch)``, replayed from one CUDA graph where the
+    input lets it be, else run eagerly.
+
+    A call can be replayed when ``_graph_inputs`` admits it, its
+    parameter leaves are the tensors of the previous call (the same
+    objects at the same addresses: the graph reads them where they
+    live, so an optimizer that updates them in place keeps the graph
+    valid) and its batch has the previous call's paths, shapes and
+    dtypes. The first such call, the second of a run, captures the pass
+    and replays it; later ones copy the batch into the graph's own and
+    replay. Any other call runs eagerly and drops the graph, freeing its
+    memory pool, so that a new run of such calls captures anew. Only
+    weak references to the previous call's parameters are kept.
+
+    Capture follows ``torch.cuda.graphs``' rules: one warm-up pass on
+    the stream captured on (the graph's entry then synchronises and
+    empties the allocator's cache, so the eager step's cached blocks do
+    not sit beside the new pool), and ``thread_local`` capture, since
+    the heartbeat, courier and data threads share the learner's
+    process. Callers sharing one instance take turns.
+
+    A replayed call returns the graph's outputs: the next call
+    overwrites them, and dropping the graph leaves them to the caller.
+    """
+
+    def __init__(self, compute, num_micro: int):
+        self._compute = compute
+        self._num_micro = num_micro
+        self._lock = threading.Lock()
+        self._seen = None    # the previous call's parameters and batch
+        self._graph = None   # (CUDAGraph, its batch, its outputs)
+        self._stream = None  # captured on; kept, with its cuBLAS workspaces
+        reg = telemetry.metrics()
+        self._captures = reg.counter("train.graph.captures")
+        self._replays = reg.counter("train.graph.replays")
+        self._eager = reg.counter("train.graph.eager")
+
+    def __call__(self, params, batch):
+        inputs = _graph_inputs(params, batch)
+        with self._lock:
+            if inputs is not None and self._same_as_seen(*inputs):
+                if self._graph is None:
+                    self._capture(params, batch)
+                return self._replay(batch)
+            self._drop()
+            self._seen = None if inputs is None else (
+                [(weakref.ref(x), x.data_ptr()) for x in inputs[0]],
+                _layout(inputs[1]))
+        self._eager.inc()
+        return self._compute(params, batch)
+
+    def _same_as_seen(self, leaves, batch_leaves) -> bool:
+        if self._seen is None:
+            return False
+        refs, layout = self._seen
+        return (len(refs) == len(leaves)
+                and all(ref() is x and ptr == x.data_ptr()
+                        for (ref, ptr), x in zip(refs, leaves))
+                and layout == _layout(batch_leaves))
+
+    def _capture(self, params, batch) -> None:
+        dev = tree.leaves(params)[0].device
+        with telemetry.span("train.capture", microbatches=self._num_micro), \
+                telemetry.activate(None):
+            static = tree.tree_map(torch.clone, batch)
+            if self._stream is None or self._stream.device != dev:
+                self._stream = torch.cuda.Stream(dev)
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self._stream):
+                self._compute(params, static)            # warm-up
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                out = self._compute(params, static)
+        self._graph = (graph, static, out)
+        self._captures.inc()
+
+    def _replay(self, batch):
+        graph, static, out = self._graph
+        with telemetry.span("train.replay", microbatches=self._num_micro):
+            tree.tree_map(lambda dst, src: dst.copy_(src), static, batch)
+            graph.replay()
+        self._replays.inc()
+        return out
+
+    def _drop(self) -> None:
+        if self._graph is not None:
+            self._graph = None
+            torch.cuda.empty_cache()
+
+
+def _layout(batch_leaves) -> list:
+    return [(path, x.shape, x.dtype) for path, x in batch_leaves]
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):

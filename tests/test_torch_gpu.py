@@ -570,3 +570,168 @@ def test_cuda_plan_estimate_matches_the_card(cuda):
         assert 0.5 <= est.peak_bytes / peak <= 2.0
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cuda_grad_pass_replays_as_one_graph(cuda):
+    """The gradient pass as the learner drives it on the card
+    (``Replayed`` over ``make_grad_fn``, as ``launch.train.LMTask``
+    builds it): the
+    reduced Qwen2 (2 superblocks, bf16 compute over fp32 master weights),
+    2 microbatches and full remat, four steps of gradient then in-place
+    AdamW on the same tensors. The first call runs eagerly, the second
+    captures the pass and every later one replays it; each step's loss
+    and every gradient leaf equal, bit for bit, a fresh function's eager
+    pass (the same kernels on the same inputs) over a copy of the state
+    that takes the same updates. A traced replay records
+    ``train.replay`` and no per-microbatch span; a batch of another
+    shape, or a new parameter tree, runs eagerly and the next call
+    captures again; dropping the graph gives its memory back."""
+    import dataclasses
+
+    from repro_torch.core import telemetry
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import tree
+    from repro_torch.train.train_step import (Replayed, TrainConfig,
+                                              make_grad_fn)
+    cfg = configs.get_reduced("qwen2-1.5b")
+    assert cfg.num_layers == 2 and cfg.compute_dtype == "bfloat16"
+    tc = TrainConfig(optimizer=opt_lib.OptimizerConfig(
+        lr=1e-3, warmup_steps=2, total_steps=10), num_microbatches=2,
+        remat="full")
+    rng = np.random.default_rng(0)
+
+    def batch(B=4, S=64):
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)).to(cuda)
+        return {"tokens": toks, "labels": toks}
+
+    def eager(params, b):
+        return make_grad_fn(cfg, tc)(params, b)
+
+    def same(a, b):
+        assert torch.equal(a[0], b[0])
+        assert all(torch.equal(x, y) for x, y in
+                   zip(tree.leaves(a[2]), tree.leaves(b[2])))
+
+    counters = {k: telemetry.metrics().counter(f"train.graph.{k}")
+                for k in ("captures", "replays", "eager")}
+
+    def counted(fn):
+        before = {k: c.value for k, c in counters.items()}
+        out = fn()
+        return out, {k: c.value - before[k] for k, c in counters.items()}
+
+    params = transformer.init_params(cfg, 0, device=cuda,
+                                     dtype=torch.float32)
+    ref = tree.tree_map(torch.clone, params)
+    opt, ref_opt = opt_lib.init_opt_state(params), opt_lib.init_opt_state(ref)
+    grad_fn = Replayed(make_grad_fn(cfg, tc), tc.num_microbatches)
+    kinds = []
+    for _ in range(4):
+        b = batch()
+        out, n = counted(lambda: grad_fn(params, b))
+        kinds.append(n)
+        want = eager(ref, b)
+        same(out, want)
+        opt_lib.apply_updates_(tc.optimizer, params, out[2], opt)
+        opt_lib.apply_updates_(tc.optimizer, ref, want[2], ref_opt)
+    del out, want
+    assert kinds == [{"captures": 0, "replays": 0, "eager": 1},
+                     {"captures": 1, "replays": 1, "eager": 0},
+                     {"captures": 0, "replays": 1, "eager": 0},
+                     {"captures": 0, "replays": 1, "eager": 0}]
+
+    b = batch()
+    telemetry.spans_buffer().drain()
+    with telemetry.activate(telemetry.start_trace()):
+        out = grad_fn(params, b)
+    names = [s["name"] for s in telemetry.spans_buffer().drain()]
+    assert names == ["train.replay"]
+    same(out, eager(ref, b))
+    del out
+
+    # Another shape, then a new parameter tree: eager, then a capture.
+    short = batch(S=32)
+    for p in (params, tree.tree_map(torch.clone, params)):
+        _, n = counted(lambda: grad_fn(p, short))
+        assert n == {"captures": 0, "replays": 0, "eager": 1}
+        out, n = counted(lambda: grad_fn(p, short))
+        assert n == {"captures": 1, "replays": 1, "eager": 0}
+        same(out, eager(p, short))
+        del out
+
+    # Dropped by a call the graph cannot take, the graph frees its pool.
+    fresh = tree.tree_map(torch.clone, params)
+    grad_fn(fresh, b)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    out, n = counted(lambda: grad_fn(fresh, b))
+    assert n["captures"] == 1
+    assert torch.cuda.memory_allocated(cuda) > before
+    del out
+    cpu = tree.tree_map(lambda t: t.cpu(), fresh)
+    grad_fn(cpu, {k: v.cpu() for k, v in b.items()})
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) == before
+
+
+def _train_batch(cfg, rng, device, B=4, S=32):
+    """A seeded batch for the loss of ``cfg``'s family, on ``device``."""
+    if cfg.family == "audio":
+        batch = {"embeddings": rng.normal(size=(B, S, cfg.d_model))
+                 .astype(np.float32),
+                 "targets": rng.integers(0, cfg.vocab_size, (B, S))
+                 .astype(np.int32),
+                 "mask": (rng.random((B, S)) < 0.5).astype(np.float32)}
+    else:
+        toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        batch = {"tokens": toks, "labels": toks}
+        if cfg.family == "vlm":
+            batch["image_embeds"] = rng.normal(
+                size=(B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_cuda_grad_pass_replays_every_family(cuda, arch):
+    """Every family's reduced config (its own compute dtype, fp32 master
+    weights), 2 microbatches and full remat, driven as the learner drives
+    ``Replayed``: three steps of gradient then in-place AdamW on the same
+    tensors. The first call runs eagerly, the second captures the pass
+    (the MoE dispatch, the recurrent scans, cross-attention and the
+    audio loss included) and the third replays it; each step's loss and
+    every gradient leaf equal, bit for bit, a fresh eager pass over a
+    copy of the state that takes the same updates."""
+    from repro_torch.core import telemetry
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import tree
+    from repro_torch.train.train_step import (Replayed, TrainConfig,
+                                              make_grad_fn)
+    cfg = configs.get_reduced(arch)
+    tc = TrainConfig(optimizer=opt_lib.OptimizerConfig(
+        lr=1e-3, warmup_steps=2, total_steps=10), num_microbatches=2,
+        remat="full")
+    rng = np.random.default_rng(1)
+    params = transformer.init_params(cfg, 0, device=cuda,
+                                     dtype=torch.float32)
+    ref = tree.tree_map(torch.clone, params)
+    opt, ref_opt = opt_lib.init_opt_state(params), opt_lib.init_opt_state(ref)
+    grad_fn = Replayed(make_grad_fn(cfg, tc), tc.num_microbatches)
+    counters = {k: telemetry.metrics().counter(f"train.graph.{k}")
+                for k in ("captures", "replays", "eager")}
+    before = {k: c.value for k, c in counters.items()}
+    for step in range(3):
+        b = _train_batch(cfg, rng, cuda)
+        loss, _, grads = grad_fn(params, b)
+        want, _, want_grads = make_grad_fn(cfg, tc)(ref, b)
+        assert torch.isfinite(want)
+        assert torch.equal(loss, want), (step, float(loss), float(want))
+        for (path, a), w in zip(tree.leaves_with_path(grads),
+                                tree.leaves(want_grads)):
+            assert torch.equal(a, w), (step, path)
+        opt_lib.apply_updates_(tc.optimizer, params, grads, opt)
+        opt_lib.apply_updates_(tc.optimizer, ref, want_grads, ref_opt)
+    assert {k: c.value - before[k] for k, c in counters.items()} == {
+        "captures": 1, "replays": 2, "eager": 1}

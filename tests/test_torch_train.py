@@ -36,8 +36,9 @@ from repro_torch.models import attention, convert
 from repro_torch.models import transformer as tt
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import tree
-from repro_torch.train.train_step import (TrainConfig, make_grad_fn,
-                                          make_loss_fn, make_train_state,
+from repro_torch.train.train_step import (Replayed, TrainConfig,
+                                          make_grad_fn, make_loss_fn,
+                                          make_train_state,
                                           make_train_step, split_batch,
                                           to_device)
 
@@ -159,6 +160,133 @@ def test_apply_updates_matches_jax():
         for (pa, a), (pb, b) in zip(_flat(got), _flat(want)):
             assert pa == pb
             _assert_rel(a, b, 1e-6, pa)
+
+
+def _decay_mask_tree(rng):
+    """A small fp32 tree with a leaf of every ``_decay_mask`` case
+    (decayed matrices, and each name that is not decayed)."""
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    return {"blocks": [{"attn": {"wq": {"kernel": t(4, 6), "bias": t(6)}},
+                        "norm": {"scale": t(4)}},
+                       {"rglru": {"lam": t(5), "bias_a": t(5),
+                                  "bias_x": t(5)},
+                        "ssm": {"A_log": t(3, 2), "D": t(3)}}],
+            "embed": {"tokens": t(7, 4)},
+            "head": {"kernel": t(4, 3)}}
+
+
+@pytest.mark.parametrize("on_mesh", [False, True])
+@pytest.mark.parametrize("clip_norm", [0.5, None])
+def test_apply_updates_in_place_equals_apply_updates(clip_norm, on_mesh):
+    """The learner's in-place AdamW against the functional one over three
+    steps: every p, m and v bit for bit, the same metrics and step, and
+    each in-place leaf the same tensor at the same address throughout
+    (the gradients' norm is ~8, so a clip of 0.5 scales them). On a 1x1
+    gloo mesh every leaf is a DTensor, matrices sharded over "data", as
+    a mesh learner holds them on a card."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.sharding.compat import make_mesh
+    cfg = dataclasses.replace(OPT, clip_norm=clip_norm, warmup_steps=1)
+    rng = np.random.default_rng(7)
+    params = _decay_mask_tree(rng)
+    assert {opt_lib._decay_mask(path) for path, _ in
+            tree.leaves_with_path(params)} == {True, False}
+    place = lambda x: x  # noqa: E731
+    if on_mesh:
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        place = lambda x: distribute_tensor(  # noqa: E731
+            x, mesh, [Shard(0) if x.dim() > 1 else Replicate(), Replicate()])
+    try:
+        fp = tree.tree_map(place, params)
+        fs = opt_lib.init_opt_state(fp)
+        ip = tree.tree_map(lambda x: place(x.clone()), params)
+        ist = opt_lib.init_opt_state(ip)
+        held = [(x, x.data_ptr()) for x in tree.leaves((ip, ist["m"],
+                                                         ist["v"]))]
+        for step in range(3):
+            g = tree.tree_map(lambda x: place(torch.from_numpy(rng.normal(
+                size=x.shape).astype(np.float32))), params)
+            fp, fs, fm = opt_lib.apply_updates(cfg, fp, g, fs)
+            im = opt_lib.apply_updates_(cfg, ip, g, ist)
+            assert torch.equal(im["grad_norm"], fm["grad_norm"])
+            assert torch.equal(im["lr"], fm["lr"])
+            assert int(ist["step"]) == int(fs["step"]) == step + 1
+            if clip_norm is not None:
+                assert float(fm["grad_norm"]) > 2 * clip_norm
+            for (path, a), b in zip(
+                    tree.leaves_with_path((ip, ist["m"], ist["v"])),
+                    tree.leaves((fp, fs["m"], fs["v"]))):
+                if on_mesh:
+                    assert isinstance(a, DTensor), path
+                    assert a.placements == b.placements, path
+                    a, b = a.full_tensor(), b.full_tensor()
+                assert torch.equal(a, b), (step, path)
+            now = tree.leaves((ip, ist["m"], ist["v"]))
+            assert all(x is y and x.data_ptr() == ptr
+                       for (x, ptr), y in zip(held, now))
+    finally:
+        if on_mesh:
+            dist.destroy_process_group()
+    # The functional update left its inputs as they were.
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(params),
+        tree.leaves(_decay_mask_tree(np.random.default_rng(7)))))
+    bf16 = {"w": {"kernel": torch.zeros(2, dtype=torch.bfloat16)}}
+    with pytest.raises(ValueError, match="fp32 moments"):
+        opt_lib.apply_updates_(cfg, bf16, bf16, opt_lib.init_opt_state(bf16))
+    # The functional update widens narrower moments and keeps the
+    # params' dtype.
+    p2, s2, _ = opt_lib.apply_updates(cfg, bf16, bf16,
+                                      opt_lib.init_opt_state(bf16))
+    assert p2["w"]["kernel"].dtype == torch.bfloat16
+    assert s2["m"]["w"]["kernel"].dtype == torch.float32
+
+
+def test_grad_fn_on_cpu_never_captures():
+    """On CPU leaves the learner's gradient function (``Replayed`` over
+    ``make_grad_fn``) runs eagerly on every call, the same parameters
+    and batch included, counting each call in ``train.graph.eager``, and
+    each call gives the first one's numbers."""
+    from repro_torch.core import telemetry
+    cfg = _fp32("qwen2-1.5b")
+    tp, _ = _params(cfg)
+    batch = _torch(_batch(cfg, B=4))
+    counters = {k: telemetry.metrics().counter(f"train.graph.{k}")
+                for k in ("captures", "replays", "eager")}
+    before = {k: c.value for k, c in counters.items()}
+    grad_fn = Replayed(make_grad_fn(cfg, TrainConfig(num_microbatches=2)), 2)
+    outs = [grad_fn(tp, batch) for _ in range(3)]
+    assert {k: c.value - before[k] for k, c in counters.items()} == {
+        "captures": 0, "replays": 0, "eager": 3}
+    for loss, _, grads in outs[1:]:
+        assert torch.equal(loss, outs[0][0])
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree.leaves(grads), tree.leaves(outs[0][2])))
+
+
+def test_only_the_learners_task_wraps_the_gradient_pass():
+    """``make_grad_fn`` and ``make_train_step`` stay plain functions that
+    count nothing in the graph counters; ``launch.train.LMTask``, whose
+    learner updates its parameters in place, wraps its gradient function
+    in ``Replayed``."""
+    from repro_torch.core import telemetry
+    from repro_torch.launch.train import LMTask
+    cfg = _fp32("qwen2-1.5b")
+    tc = TrainConfig(num_microbatches=2)
+    params, opt = make_train_state(cfg, 0, device="cpu")
+    batch = _torch(_batch(cfg, B=4))
+    counters = [telemetry.metrics().counter(f"train.graph.{k}")
+                for k in ("captures", "replays", "eager")]
+    before = [c.value for c in counters]
+    grad_fn = make_grad_fn(cfg, tc)
+    assert not isinstance(grad_fn, Replayed)
+    grad_fn(params, batch)
+    make_train_step(cfg, tc)(params, opt, batch)
+    assert [c.value for c in counters] == before
+    assert isinstance(LMTask(cfg, tc, device="cpu")._compute, Replayed)
 
 
 def test_decay_mask_leaf_set_equals_jax():
