@@ -13,7 +13,7 @@ from typing import Any, Optional
 @dataclasses.dataclass
 class Bundle:
     cell: str
-    sizes: dict                  # modelcfg.sizes of the configuration
+    sizes: dict                  # the architecture's sizes(config)
     config: dict
     traffic: dict
     seconds: float
@@ -29,6 +29,7 @@ class Bundle:
     trace: Optional[Any] = None  # profiling.DeviceTrace, read
     host_spans: list = dataclasses.field(default_factory=list)
     extra: dict = dataclasses.field(default_factory=dict)
+    arch: Optional[Any] = None   # the module archs/<name>.py: the counts
 
     def wall(self, t: float) -> float:
         return t + self.perf_to_wall

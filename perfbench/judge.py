@@ -7,8 +7,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from perfbench import reference
-
 
 def _limits(cell) -> dict:
     return {k: v for k, v in cell.limits.items() if k != "sample"}
@@ -68,6 +66,7 @@ def serve_numbers(bundle, aux: dict, cell, seed: int, device,
                          seed, int(cell.limits["sample"]["requests"]))
     seqs = [(r["reply"], r["prompt_len"]) for r in sample]
     chunk = bundle.config["serve"].get("prefill_chunk")
+    reference = bundle.arch.reference
     gaps = reference.served_gaps(aux["sizes"], aux["weights"], seqs, chunk,
                                  device) if seqs else []
     out = {"lost_requests": lost, "bad_replies": bad,
@@ -97,14 +96,15 @@ def _train_compare(losses, grad_norms, changes, ref, d_ref, keep) -> dict:
             "update_norm_gap": _worst_leaf(changes, d_ref, keep)}
 
 
-def _ref_run(s, seed, device, dt, batches, aux, quant=None):
+def _ref_run(arch, s, seed, device, dt, batches, aux, quant=None):
     """The reference's three steps from the seed: (readings, changes)."""
     from perfbench import weights as wts
 
-    start = wts.draw(s, seed, device, dt)
-    params = wts.draw(s, seed, device, dt)
-    ref = reference.train_steps(s, params, batches, aux["optimizer"],
-                                aux["num_micro"], wts.leaves, quant=quant)
+    start = wts.draw(arch.layout(s), seed, device, dt)
+    params = wts.draw(arch.layout(s), seed, device, dt)
+    ref = arch.reference.train_steps(s, params, batches, aux["optimizer"],
+                                     aux["num_micro"], wts.leaves,
+                                     quant=quant)
     changes = [float((pr - p0).norm()) for (_, p0), (_, pr) in
                zip(wts.leaves(start), wts.leaves(params))]
     return ref, changes
@@ -121,13 +121,14 @@ def train_numbers(bundle, aux: dict, cell, seed: int, device,
 
     from perfbench import weights as wts
 
-    probe, s = aux["probe"], aux["sizes"]
+    probe, s, arch = aux["probe"], aux["sizes"], bundle.arch
     dt = getattr(torch, s["param_dtype"])
     batches = [torch.as_tensor(b, device=device) for b in probe.batches]
-    start = wts.draw(s, seed, device, dt)
-    ref_params = wts.draw(s, seed, device, dt)
-    ref = reference.train_steps(s, ref_params, batches, aux["optimizer"],
-                                aux["num_micro"], wts.leaves)
+    start = wts.draw(arch.layout(s), seed, device, dt)
+    ref_params = wts.draw(arch.layout(s), seed, device, dt)
+    ref = arch.reference.train_steps(s, ref_params, batches,
+                                     aux["optimizer"], aux["num_micro"],
+                                     wts.leaves)
     g_ref = ref["first_grad_norms"]
     med_g = float(np.median(g_ref))
     keep = [g >= 1e-3 * med_g for g in g_ref]
@@ -141,14 +142,15 @@ def train_numbers(bundle, aux: dict, cell, seed: int, device,
                          d_ref, keep)
     out["_left_out_leaves"] = int(len(keep) - sum(keep))
     if control:
-        low, d_low = _ref_run(s, seed, device, dt, batches, aux, "fp8")
+        low, d_low = _ref_run(arch, s, seed, device, dt, batches, aux,
+                              "fp8")
         for k, v in _train_compare(low["losses"], low["first_grad_norms"],
                                    d_low, ref, d_ref, keep).items():
             out[f"_control_{k}"] = v
         del low
         half = [b[: b.shape[0] // 2] for b in batches]
         aux_half = dict(aux, num_micro=1)
-        hf, d_hf = _ref_run(s, seed, device, dt, half, aux_half)
+        hf, d_hf = _ref_run(arch, s, seed, device, dt, half, aux_half)
         for k, v in _train_compare(hf["losses"], hf["first_grad_norms"],
                                    d_hf, ref, d_ref, keep).items():
             out[f"_half_batch_{k}"] = v

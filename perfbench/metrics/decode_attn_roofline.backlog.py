@@ -1,7 +1,8 @@
 """Decode attention's share of its roofline: the least time in which the
 card's HBM (3.35 TB/s) could deliver the K/V bytes that the traced
-span's decode steps needed (each row's context, by ``flops.py``),
-over the device time of the decode-attention kernels in that span."""
+span's decode steps needed (each row's context, by the architecture's
+``decode_kv_bytes``), over the device time of the decode-attention
+kernels in that span."""
 
 from perfbench import flops, profiling, work
 
@@ -11,7 +12,8 @@ def read(b):
     if tr is None:
         return None
     t0, t1 = tr.t0, tr.t1
-    need = sum(work.share(a, e, t0, t1) * flops.decode_kv_bytes(b.sizes, pos)
+    kv_bytes = b.arch.decode_kv_bytes
+    need = sum(work.share(a, e, t0, t1) * kv_bytes(b.sizes, pos)
                for a, e, pos in work.decode_rows(b))
     busy = profiling.seconds_by(
         tr.kernels, t0, t1, lambda n: profiling.family(n) == "decode_attn")

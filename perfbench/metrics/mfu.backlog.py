@@ -11,14 +11,14 @@ def read(b):
     if tr is None:
         return None
     t0, t1 = tr.t0, tr.t1
-    s, w = b.sizes, b.sizes.get("window")
+    s, w, arch = b.sizes, b.sizes.get("window"), b.arch
     total = 0.0
     for a, e, off, n, _ in work.prefill_calls(b):
-        total += work.share(a, e, t0, t1) * flops.token_flops(
-            s, n, flops.attn_pairs_prefill(off, n, w))
+        total += work.share(a, e, t0, t1) * arch.token_flops(
+            s, n, arch.attn_pairs_prefill(off, n, w))
     for a, e, pos in work.decode_rows(b):
         pairs = sum(min(t + 1, w) if w else t + 1 for t in pos)
-        total += work.share(a, e, t0, t1) * flops.token_flops(
+        total += work.share(a, e, t0, t1) * arch.token_flops(
             s, len(pos), pairs)
     if total <= 0:
         return None

@@ -1,7 +1,7 @@
 """The train step's share of the card's bf16 peak over the window: model
 FLOPs of the steps completed in it (6 N T plus the dense attention, as
-``flops.train_flops`` counts them, no recomputation), over the window's
-seconds at 989 TFLOP/s."""
+the architecture's ``train_flops`` counts them, no recomputation), over
+the window's seconds at 989 TFLOP/s."""
 
 from perfbench import flops
 
@@ -10,5 +10,5 @@ def read(b):
     if len(b.steps) < 2:
         return None
     n = len(b.steps) - 1
-    f = flops.train_flops(b.sizes, b.extra["batch"], b.extra["seq"])
+    f = b.arch.train_flops(b.sizes, b.extra["batch"], b.extra["seq"])
     return 100.0 * n * f / flops.PEAK_BF16_FLOPS / (b.steps[-1] - b.steps[0])

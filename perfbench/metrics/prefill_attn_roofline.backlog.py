@@ -12,8 +12,8 @@ def read(b):
         return None
     t0, t1 = tr.t0, tr.t1
     w = b.sizes.get("window")
-    need = sum(work.share(a, e, t0, t1) * flops.attn_flops(
-        b.sizes, flops.attn_pairs_prefill(off, n, w))
+    need = sum(work.share(a, e, t0, t1) * b.arch.attn_flops(
+        b.sizes, b.arch.attn_pairs_prefill(off, n, w))
         for a, e, off, n, path in work.prefill_calls(b) if path == "direct")
     busy = profiling.seconds_by(
         tr.kernels, t0, t1, lambda n: profiling.family(n) == "prefill_attn")

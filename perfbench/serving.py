@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from perfbench import modelcfg, profiling
+from perfbench import profiling
 from perfbench import traffic as tr
 from perfbench import weights as wts
 from perfbench.bundle import Bundle
@@ -262,10 +262,11 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     bundle and what the correctness check needs (``weights`` is the tree
     both sides read; the program's state is gone by then)."""
     conf, serve = cell.config, cell.config["serve"]
-    s = modelcfg.sizes(conf)
-    model_cfg = modelcfg.program_config(conf)
+    arch = cell.arch
+    s = arch.sizes(conf)
+    model_cfg = arch.program_config(conf)
     dtype = getattr(torch, s["compute_dtype"])
-    weights = wts.draw(s, seed, device, dtype)
+    weights = wts.draw(arch.layout(s), seed, device, dtype)
     wts.check_layout(weights, transformer.param_shapes(model_cfg))
     plan = plan_for(cell, s, seed, seconds, trace)
     box = _Box()
@@ -318,7 +319,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
                seconds=float(seconds), setup_s=res["t_setup"] - t_start,
                t0=res["t0"], t1=res["t1"], perf_to_wall=res["perf_to_wall"],
                requests=res["requests"], spans=res["spans"],
-               stats0=res["stats0"], stats1=res["stats1"], trace=trace_obj)
+               stats0=res["stats0"], stats1=res["stats1"], trace=trace_obj,
+               arch=arch)
     b.host_spans = [(sp["name"], sp["ts"], sp["ts"] + sp["dur"])
                     for sp in res["spans"]]
     return b, {"weights": weights, "sizes": s}

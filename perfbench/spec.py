@@ -1,7 +1,9 @@
 """Finds what a cell is made of, by the names in ``BENCHMARK.json``:
-its configuration file, its traffic mix under ``traffic/``, its limits
-under ``limits/`` and the reader of each of its metrics under
-``metrics/``. Nothing here names a cell, a configuration or a metric."""
+its configuration file, the architecture that file names under
+``archs/``, its traffic mix under ``traffic/``, its limits under
+``limits/`` and the reader of each of its metrics under ``metrics/``.
+Nothing here names a cell, a configuration, an architecture or a
+metric."""
 
 from __future__ import annotations
 
@@ -26,6 +28,12 @@ class Cell:
     limits: dict          # limits/<cell>.json, parsed
     end_to_end: list      # the BENCHMARK.json entries this cell reports
     per_layer: list
+    base: str = HERE      # the folder its files were found in
+
+    @property
+    def arch(self):
+        """The module of the architecture that the configuration names."""
+        return arch_of(self.config, self.base)
 
 
 def load_json(path: str) -> Any:
@@ -90,22 +98,52 @@ def cell(name: str, root: str = ROOT, bench: Optional[dict] = None,
                                        f"{w['traffic']}.json")),
         traffic_name=w["traffic"],
         limits=limits,
-        end_to_end=e2e, per_layer=per_layer)
+        end_to_end=e2e, per_layer=per_layer, base=base)
 
 
-_readers: dict = {}
+_modules: dict = {}
+
+
+def _load(path: str, prefix: str, name: str):
+    """The module in the file ``path``, executed once a process."""
+    if path not in _modules:
+        mod_name = prefix + name.replace(".", "_").replace("-", "_")
+        sp = importlib.util.spec_from_file_location(mod_name, path)
+        mod = importlib.util.module_from_spec(sp)
+        sp.loader.exec_module(mod)
+        _modules[path] = mod
+    return _modules[path]
 
 
 def reader(metric: str, base: str = HERE):
     """The ``read(bundle)`` function of ``metrics/<metric>.py``."""
     path = os.path.join(base, "metrics", f"{metric}.py")
-    if path not in _readers:
-        if not os.path.exists(path):
-            raise KeyError(f"no reader for metric {metric!r} ({path})")
-        mod_name = "perfbench_metric_" + metric.replace(".", "_").replace(
-            "-", "_")
-        sp = importlib.util.spec_from_file_location(mod_name, path)
-        mod = importlib.util.module_from_spec(sp)
-        sp.loader.exec_module(mod)
-        _readers[path] = mod.read
-    return _readers[path]
+    if not os.path.exists(path):
+        raise KeyError(f"no reader for metric {metric!r} ({path})")
+    return _load(path, "perfbench_metric_", metric).read
+
+
+def arch(name: str, base: str = HERE):
+    """The module ``archs/<name>.py``: an architecture as the benchmark
+    knows it (README.md, "Adding to it"): ``sizes(conf)``,
+    ``program_config(conf)``, ``layout(sizes)``, ``reference``,
+    ``tiny(conf)`` and the counts that the metrics' readers use."""
+    folder = os.path.join(base, "archs")
+    path = os.path.join(folder, f"{name}.py")
+    if not os.path.exists(path):
+        known = sorted(f[:-3] for f in os.listdir(folder)
+                       if f.endswith(".py")) if os.path.isdir(folder) else []
+        raise KeyError(f"no architecture {name!r} in {folder}; known: "
+                       f"{known}")
+    return _load(path, "perfbench_arch_", name)
+
+
+def arch_of(conf: dict, base: str = HERE):
+    """The architecture that a configuration file names under
+    ``"bench_arch"``; a file that names none is refused."""
+    if "bench_arch" not in conf:
+        folder = os.path.join(base, "archs")
+        raise ValueError(f"configuration {conf.get('name', '?')!r} names "
+                         "no architecture: give it \"bench_arch\", the "
+                         f"name of a module under {folder}")
+    return arch(conf["bench_arch"], base)

@@ -8,11 +8,14 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import reference
+from perfbench import spec
 from perfbench import weights as wts
 from repro_torch import configs
 from repro_torch.models import transformer
 from repro_torch.serve.engine import ServeEngine
+
+ARCH = spec.arch("transformer")
+reference = ARCH.reference
 
 
 def _reduced(arch: str):
@@ -32,7 +35,7 @@ def _reduced(arch: str):
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mixtral-8x7b"])
 def test_reference_matches_the_port_prefill(arch):
     cfg, s = _reduced(arch)
-    w = wts.draw(s, 11, "cpu", torch.float32)
+    w = wts.draw(ARCH.layout(s), 11, "cpu", torch.float32)
     wts.check_layout(w, transformer.param_shapes(cfg))
     toks = np.random.default_rng(1).integers(0, s["vocab"], 40)
     with torch.no_grad():
@@ -53,7 +56,7 @@ def test_reference_matches_the_port_prefill(arch):
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mixtral-8x7b"])
 def test_engine_tokens_are_the_reference_argmax(arch):
     cfg, s = _reduced(arch)
-    w = wts.draw(s, 12, "cpu", torch.float32)
+    w = wts.draw(ARCH.layout(s), 12, "cpu", torch.float32)
     eng = ServeEngine(cfg, w, num_slots=4, context_len=96, max_new=12,
                       prefill_chunk=16, device="cpu",
                       page_size=8 if not s["experts"] else None)
@@ -70,7 +73,7 @@ def test_engine_tokens_are_the_reference_argmax(arch):
 
 def test_the_fp8_control_departs_from_the_reference():
     cfg, s = _reduced("qwen2-1.5b")
-    w = wts.draw(s, 13, "cpu", torch.float32)
+    w = wts.draw(ARCH.layout(s), 13, "cpu", torch.float32)
     toks = np.random.default_rng(3).integers(0, s["vocab"], 60)
     seqs = [(toks, 10)]
     ref = reference.serve_logits(s, w, seqs, None, "cpu")[0]

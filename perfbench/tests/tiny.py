@@ -1,5 +1,6 @@
 """Tiny cells for the CPU tests: the configurations' and mixes' own
-shapes of file, at sizes a test run holds."""
+shapes of file, at sizes a test run holds. The architecture that a
+configuration names shrinks it (its ``tiny(conf)``)."""
 
 from __future__ import annotations
 
@@ -7,25 +8,16 @@ import copy
 
 from perfbench import spec
 
-TINY_SIZES = {"hidden_size": 64, "intermediate_size": 128,
-              "num_attention_heads": 4, "num_key_value_heads": 2,
-              "num_hidden_layers": 2, "vocab_size": 256}
 
-
-def tiny_config(name: str) -> dict:
-    conf = copy.deepcopy(spec.load_json(
-        f"{spec.HERE}/configs/{name}.json"))
-    conf.update(TINY_SIZES, tiny=True)
-    # float32 compute: the port then agrees with the reference to
-    # rounding, and a fault stands out against any committed limit.
-    conf["port"]["compute_dtype"] = "float32"
+def tiny_config(conf: dict, base: str = spec.HERE) -> dict:
+    conf = spec.arch_of(conf, base).tiny(conf)
     if "serve" in conf:
         conf["serve"].update(num_slots=8, context_len=256, prefill_chunk=32)
     return conf
 
 
-def tiny_traffic(name: str) -> dict:
-    mix = copy.deepcopy(spec.load_json(f"{spec.HERE}/traffic/{name}.json"))
+def tiny_traffic(mix: dict) -> dict:
+    mix = copy.deepcopy(mix)
     if mix["kind"] == "serve":
         mix["prompt"].update(median=24, min=4, max=96)
         mix["output"].update(median=6, min=2, max=24)
@@ -41,10 +33,11 @@ def tiny_traffic(name: str) -> dict:
     return mix
 
 
-def tiny_cell(workload: str) -> spec.Cell:
-    """The cell of BENCHMARK.json at a tiny size, its limits as
-    committed."""
-    cell = spec.cell(workload)
-    cell.config = tiny_config(cell.config_name)
-    cell.traffic = tiny_traffic(cell.traffic_name)
+def tiny_cell(workload: str, **where) -> spec.Cell:
+    """The cell of BENCHMARK.json (or of ``where``'s ``root``, ``bench``
+    and ``base``, as ``spec.cell`` takes them) at a tiny size, its limits
+    as committed."""
+    cell = spec.cell(workload, **where)
+    cell.config = tiny_config(cell.config, cell.base)
+    cell.traffic = tiny_traffic(cell.traffic)
     return cell

@@ -23,7 +23,6 @@ import time
 import numpy as np
 import torch
 
-from perfbench import modelcfg
 from perfbench import weights as wts
 from perfbench.bundle import Bundle
 from perfbench.profiling import profile_in
@@ -153,9 +152,11 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
         t_start: float) -> tuple[Bundle, dict]:
     conf, mix = cell.config, cell.traffic
     tcfg = conf["train"]
-    s = modelcfg.sizes(conf)
-    model_cfg = modelcfg.program_config(conf)
-    weights = wts.draw(s, seed, device, getattr(torch, s["param_dtype"]))
+    arch = cell.arch
+    s = arch.sizes(conf)
+    model_cfg = arch.program_config(conf)
+    weights = wts.draw(arch.layout(s), seed, device,
+                       getattr(torch, s["param_dtype"]))
     wts.check_layout(weights, transformer.param_shapes(model_cfg))
     B, S, nm = (int(mix["batch_size"]), int(mix["seq_len"]),
                 int(mix["num_microbatches"]))
@@ -214,7 +215,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     b = Bundle(cell=cell.name, sizes=s, config=conf, traffic=mix,
                seconds=float(seconds), setup_s=probe.t0 - t_start,
                t0=probe.t0, t1=probe.t1, perf_to_wall=probe.perf_to_wall,
-               steps=steps, trace=trace_obj)
+               steps=steps, trace=trace_obj, arch=arch)
     b.host_spans = [(n, b.wall(a), b.wall(e)) for n, a, e in
                     probe.host_spans]
     b.extra = {"tokens_per_step": B * S, "batch": B, "seq": S}

@@ -1,8 +1,9 @@
 """Seeded weights, drawn on the device in a few large calls.
 
-The tree has the port's layout (``transformer.param_shapes``), which the
-harness checks before handing it over, and which the reference reads by
-the same names. Each dtype's leaves are views into one flat buffer,
+The tree has the layout that the architecture's module gives
+(``archs/<name>.py`` ``layout(sizes)``): the port's, which the harness
+checks before handing it over, and which the reference reads by the
+same names. Each dtype's leaves are views into one flat buffer,
 filled by ``normal_`` in chunks from one ``torch.Generator`` on the
 device; then each leaf is scaled in place: matrices by their fan-in to
 the -1/2 (the port's own init), biases to 0.1, norm scales to 1 + 0.1 x.
@@ -13,37 +14,6 @@ from __future__ import annotations
 import torch
 
 CHUNK = 1 << 28            # elements a normal_ call draws
-
-
-def layout(s: dict) -> list[tuple[tuple, tuple, str]]:
-    """[(path, shape, kind)] in drawing order; kind is "matrix", "bias"
-    or "scale". ``s`` is ``modelcfg.sizes``."""
-    d, f, V = s["d"], s["f"], s["vocab"]
-    hq, hk = s["h"] * s["dh"], s["kv"] * s["dh"]
-    out = [(("embed", "tokens"), (V, d), "matrix_rows")]
-    if not s["tie"]:
-        out.append((("embed", "head", "kernel"), (d, V), "matrix"))
-    for r in range(s["layers"]):
-        b = ("blocks", r, "0")
-        out.append((b + ("norm", "scale"), (d,), "scale"))
-        for name, width in (("wq", hq), ("wk", hk), ("wv", hk)):
-            out.append((b + ("attn", name, "kernel"), (d, width), "matrix"))
-            if s["qkv_bias"]:
-                out.append((b + ("attn", name, "bias"), (width,), "bias"))
-        out.append((b + ("attn", "wo", "kernel"), (hq, d), "matrix"))
-        out.append((b + ("mlp_norm", "scale"), (d,), "scale"))
-        if s["experts"]:
-            e = s["experts"]
-            out += [(b + ("mlp", "router", "kernel"), (d, e), "matrix"),
-                    (b + ("mlp", "w_gate"), (e, d, f), "matrix"),
-                    (b + ("mlp", "w_up"), (e, d, f), "matrix"),
-                    (b + ("mlp", "w_down"), (e, f, d), "matrix")]
-        else:
-            out += [(b + ("mlp", "w_gate", "kernel"), (d, f), "matrix"),
-                    (b + ("mlp", "w_up", "kernel"), (d, f), "matrix"),
-                    (b + ("mlp", "w_down", "kernel"), (f, d), "matrix")]
-    out.append((("final_norm", "scale"), (d,), "scale"))
-    return out
 
 
 def _put(tree: dict, path: tuple, leaf) -> None:
@@ -59,11 +29,11 @@ def _put(tree: dict, path: tuple, leaf) -> None:
     node[path[-1]] = leaf
 
 
-def draw(s: dict, seed: int, device, dtype: torch.dtype) -> dict:
-    """The seeded tree for sizes ``s``: the same seed, sizes, device type
-    and dtype give the same numbers."""
+def draw(items: list, seed: int, device, dtype: torch.dtype) -> dict:
+    """The seeded tree of the layout ``items`` ([(path, shape, kind)] in
+    drawing order; kind is "matrix", "matrix_rows", "bias" or "scale"):
+    the same seed, layout, device type and dtype give the same numbers."""
     gen = torch.Generator(device=device).manual_seed(int(seed) % (1 << 63))
-    items = layout(s)
     groups: dict[torch.dtype, list] = {}
     for path, shape, kind in items:
         dt = torch.float32 if kind == "scale" else dtype

@@ -2,7 +2,8 @@
 the requests the load sent: for every decode window, each row's
 positions, and for every prefill call, its offset and length. The
 readers of the kernels' and the model's shares count operations and
-bytes from these with ``flops.py``."""
+bytes from these with the architecture's counts
+(``archs/<name>.py``)."""
 
 from __future__ import annotations
 
