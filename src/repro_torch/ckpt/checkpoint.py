@@ -118,9 +118,14 @@ def config_hash(cfg: Any) -> str:
     """Stable short hash of a model config (dataclass or anything
     repr-able) — stored in version metadata so a replica can refuse to
     hot-swap weights built for a different architecture. Equal to the
-    JAX package's hash of the same config."""
+    JAX package's hash of the same config (the port's own fields count
+    only where they leave their defaults, ``config.shared_fields``)."""
     import dataclasses as dc
-    if dc.is_dataclass(cfg) and not isinstance(cfg, type):
+
+    from repro_torch.models.config import ModelConfig, shared_fields
+    if isinstance(cfg, ModelConfig):
+        blob = json.dumps(shared_fields(cfg), sort_keys=True, default=str)
+    elif dc.is_dataclass(cfg) and not isinstance(cfg, type):
         blob = json.dumps(dc.asdict(cfg), sort_keys=True, default=str)
     else:
         blob = repr(cfg)

@@ -17,6 +17,7 @@ _ARCHS = {
     "mixtral-8x7b": "mixtral_8x7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "mellum2-12b-a2.5b": "mellum2_12b_a2_5b",
 }
 
 ARCH_NAMES = tuple(_ARCHS)

@@ -59,6 +59,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import threading
 from typing import Optional
 
 import numpy as np
@@ -112,7 +113,12 @@ class LMTask:
     its parameters in place on a card (``optimizer.apply_updates_``), so
     from its second step on the pass replays as one CUDA graph. What
     ``grad_fn`` returns then lives in the graph's memory until the next
-    call; the learner consumes it before then."""
+    call; the learner consumes it before then.
+
+    For a stack of dropless expert layers the pass also leaves, on the
+    device, the rows each held expert computed, summed over the
+    microbatches; ``read_step`` reads their sum and their largest entry
+    back with the loss, in one copy."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  device="cuda"):
@@ -122,6 +128,9 @@ class LMTask:
         self.optimizer = train_cfg.optimizer
         self._compute = Replayed(make_grad_fn(model_cfg, train_cfg),
                                  train_cfg.num_microbatches)
+        # The rows of the last pass, per calling thread: the learners of
+        # one process share the task.
+        self._last = threading.local()
 
     def __reduce__(self):
         # A mesh follower rebuilds the task on its own card of this type.
@@ -133,8 +142,21 @@ class LMTask:
                                        dtype=self._model_cfg.param_dtype)
 
     def grad_fn(self, params, batch):
-        loss, _aux, grads = self._compute(params, batch)
+        loss, aux, grads = self._compute(params, batch)
+        self._last.rows = aux.get("moe_rows")
         return loss, grads
+
+    def read_step(self, loss) -> tuple[float, dict]:
+        """(the loss as a float, the step's readings): with held experts,
+        ``moe.rows_held``, the rows all of them computed in every layer,
+        and ``moe.rows_max``, the busiest one's, read back with the loss
+        in one copy."""
+        rows = getattr(self._last, "rows", None)
+        self._last.rows = None
+        if rows is None:
+            return float(loss), {}
+        host = torch.stack([loss.float(), rows.sum(), rows.max()]).tolist()
+        return host[0], {"moe.rows_held": host[1], "moe.rows_max": host[2]}
 
     def state_to_numpy(self, state: dict) -> dict:
         return convert.train_state_to_numpy(self._model_cfg, state)
@@ -154,6 +176,14 @@ def _data_batch_fn(data_nodes):
         except Exception:  # noqa: BLE001
             return None
     return fn
+
+
+# How long a stopping fleet waits for its learners' threads: a learner
+# stops between steps, and a step of a model at 8k tokens takes seconds
+# (about 5.5 s for Mellum2's share on an H100), so the wait covers one. A
+# learner left running past it would hold its state and its graph's pool
+# on the card while whatever comes after the program allocates there.
+LEARNER_STOP_S = 120.0
 
 
 class FleetSupervisor:
@@ -213,7 +243,7 @@ class FleetSupervisor:
         try:
             sup.run()
         finally:
-            spawner.stop_all()
+            spawner.stop_all(timeout_s=LEARNER_STOP_S)
             if group is not None:
                 group.close()
 
@@ -275,6 +305,7 @@ def build_program(model_cfg: ModelConfig, *, steps: int, ckpt_dir: str,
                   registry_ttl_s: float = 10.0,
                   heartbeat_s: float = 0.2,
                   telemetry_dir: Optional[str] = None, trace_every: int = 0,
+                  grad_strategy: str = "auto",
                   device="cuda") -> lp.Program:
     """The training topology on ``device`` (a CUDA card must exist unless
     ``device="cpu"``), its learners on a ``mesh_shape`` mesh when one is
@@ -295,7 +326,8 @@ def build_program(model_cfg: ModelConfig, *, steps: int, ckpt_dir: str,
         num_microbatches=num_micro)
     fab_cfg = FabricConfig(total_steps=steps, batch_size=batch_size,
                            publish_every=publish_every,
-                           heartbeat_s=heartbeat_s, trace_every=trace_every)
+                           heartbeat_s=heartbeat_s, trace_every=trace_every,
+                           grad_strategy=grad_strategy)
 
     p = lp.Program(f"train-{model_cfg.name}")
     with p.group("registry"):
@@ -333,9 +365,21 @@ def main(argv=None):
     ap.add_argument("--preset", default="tiny", choices=sorted(PRESETS))
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale variant of --arch")
+    ap.add_argument("--experts-held", default=None, metavar="A,B",
+                    help="hold experts A..B-1 of --arch's dropless expert "
+                         "layers: one chip's share of expert parallelism")
+    ap.add_argument("--vocab-size", type=int, default=None,
+                    help="keep the first N rows of --arch's vocabulary")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-strategy", default="auto",
+                    choices=("auto", "dense", "int8_ef"),
+                    help="the gradient's form on the wire and in the "
+                         "update; auto: int8_ef for a gradient of 4 MiB "
+                         "or more, whose error-feedback residual is a "
+                         "second copy of it")
     ap.add_argument("--ckpt-dir", default="/tmp/repro_train_ckpt")
     ap.add_argument("--learners", type=int, default=1,
                     help="data-parallel learner count (chief = learner-0)")
@@ -364,6 +408,12 @@ def main(argv=None):
                      else configs.get(args.arch))
     else:
         model_cfg = PRESETS[args.preset]
+    if args.experts_held:
+        lo, hi = (int(x) for x in args.experts_held.split(","))
+        model_cfg = dataclasses.replace(model_cfg, experts_held=(lo, hi))
+    if args.vocab_size:
+        model_cfg = dataclasses.replace(model_cfg,
+                                        vocab_size=args.vocab_size)
 
     mesh_shape = (tuple(int(x) for x in args.mesh.split(","))
                   if args.mesh else None)
@@ -371,12 +421,15 @@ def main(argv=None):
                             ckpt_dir=args.ckpt_dir,
                             batch_size=args.batch_size,
                             seq_len=args.seq_len,
+                            num_micro=args.microbatches,
                             learners=args.learners,
                             publish_every=args.publish_every,
                             kill_after=args.kill_after,
                             mesh_shape=mesh_shape,
                             telemetry_dir=args.telemetry_dir,
-                            trace_every=args.trace_every, device=args.device)
+                            trace_every=args.trace_every,
+                            grad_strategy=args.grad_strategy,
+                            device=args.device)
     print(program)
     # The mesh's followers are not restarted: their loss ends the program.
     launcher = lp.ThreadLauncher(

@@ -39,7 +39,7 @@ from repro_torch.kernels import _shards
 from repro_torch.kernels import decode_attention as flash_decode
 from repro_torch.kernels import flash_attention as flash_prefill
 from repro_torch.models import layers
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.sharding import current_ctx, shard
 
 NEG_INF = -2.0 ** 30
@@ -139,10 +139,11 @@ def _project_qkv(cfg: ModelConfig, p: dict, xq: torch.Tensor,
     return q, k, v
 
 
-def _rope(cfg: ModelConfig, pos: torch.Tensor, *xs):
+def _rope(cfg: ModelConfig, kind: str, pos: torch.Tensor, *xs):
+    """xs rotated for a block of ``kind`` (``layers.rope_freqs``)."""
     if not cfg.rope:
         return xs
-    sin, cos = layers.rope_freqs(cfg, pos)
+    sin, cos = layers.rope_freqs(cfg, pos, kind)
     return tuple(layers.apply_rope(x, sin, cos) for x in xs)
 
 
@@ -236,7 +237,7 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     causal = cfg.causal
     window = _window(cfg, kind)
     q, k, v = _project_qkv(cfg, p, x, x)
-    q, k = _rope(cfg, positions, q, k)
+    q, k = _rope(cfg, kind, positions, q, k)
     B, S = x.shape[:2]
     if _resolve_impl(impl, x) == "flash" and _flash_eligible(cfg):
         out = _flash_prefill(q, k, v, causal=causal, window=window)
@@ -439,7 +440,7 @@ def paged_decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     tb = _positions(t, B, x.device)
 
     q, k_new, v_new = _project_qkv(cfg, p, x, x)
-    q, k_new = _rope(cfg, tb[:, None], q, k_new)
+    q, k_new = _rope(cfg, ATTN, tb[:, None], q, k_new)
 
     slot = torch.remainder(tb, L)                              # [B] logical
     rows = torch.arange(B, device=x.device)
@@ -506,7 +507,7 @@ def decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     tb = _positions(t, B, x.device)
 
     q, k_new, v_new = _project_qkv(cfg, p, x, x)
-    q, k_new = _rope(cfg, tb[:, None], q, k_new)
+    q, k_new = _rope(cfg, kind, tb[:, None], q, k_new)
 
     # One slot per row, written in place. A sharded cache (a DTensor) is
     # rewritten whole with the JAX package's mask-select, which stays
@@ -565,7 +566,7 @@ def extend_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q, k_new, v_new = _project_qkv(cfg, p, x, x)
     pos = tb[:, None] + torch.arange(C, dtype=torch.int32,
                                      device=x.device)[None, :]    # [B,C]
-    q, k_new = _rope(cfg, pos, q, k_new)
+    q, k_new = _rope(cfg, kind, pos, q, k_new)
 
     # Absolute position of each existing slot before this chunk lands; at
     # t0=0 every one is negative -> fully masked.

@@ -24,6 +24,22 @@ MAMBA = "mamba"        # Mamba-1 block (no separate MLP)
 
 
 @dataclasses.dataclass(frozen=True)
+class YaRN:
+    """YaRN's scaling of RoPE (arXiv:2309.00071), as Hugging Face's
+    ``_compute_yarn_parameters`` reads it: the frequencies blend the
+    original ones (fast, above ``beta_fast`` rotations over
+    ``original_max_positions``) with ones divided by ``factor`` (slow,
+    below ``beta_slow`` rotations) along a linear ramp whose ends are
+    rounded outward to whole frequency pairs, and cos and sin are
+    multiplied by ``attention_factor``."""
+    factor: float
+    original_max_positions: int
+    attention_factor: float
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                      # dense | moe | ssm | hybrid | vlm | audio
@@ -47,6 +63,7 @@ class ModelConfig:
     rope: bool = True
     rope_theta: float = 10_000.0
     window: Optional[int] = None             # SWA / local-attn window
+    rope_yarn: Optional[YaRN] = None         # ATTN layers' RoPE scaling
     logit_softcap: Optional[float] = None
 
     # --- MLP -----------------------------------------------------------------
@@ -67,6 +84,13 @@ class ModelConfig:
     experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
     router_aux_loss: float = 0.02
+    # The experts this device holds, [first, last + 1) of num_experts
+    # (None: all). It routes over all of them and computes what its own
+    # give the tokens routed to them (one share of expert parallelism).
+    experts_held: Optional[tuple[int, int]] = None
+    # Every choice of a held expert computed: no capacity, no group
+    # (``moe.apply_dropless``). Off: the capacity rule of ``moe.route``.
+    moe_dropless: bool = False
 
     # --- SSM (Mamba-1) ----------------------------------------------------------
     ssm_state: int = 0
@@ -96,6 +120,25 @@ class ModelConfig:
                                int(math.ceil(self.d_model / 16)))
         if self.num_layers % len(self.pattern) and self.family == "moe":
             raise ValueError("MoE stacks must tile the pattern exactly")
+        if self.experts_held is not None:
+            lo, hi = self.experts_held
+            if not (0 <= lo < hi <= self.num_experts):
+                raise ValueError(f"experts_held {self.experts_held} is not "
+                                 f"a range of the {self.num_experts} "
+                                 "experts")
+            if not self.moe_dropless:
+                raise ValueError("a share of the experts is computed by "
+                                 "the dropless layer: set moe_dropless")
+
+    @property
+    def held_range(self) -> tuple[int, int]:
+        """[first, last + 1) of the experts this device holds."""
+        return self.experts_held or (0, self.num_experts)
+
+    @property
+    def num_experts_held(self) -> int:
+        lo, hi = self.held_range
+        return hi - lo
 
     # --- pattern helpers -----------------------------------------------------
     @property
@@ -163,8 +206,9 @@ class ModelConfig:
     def _mlp_params(self) -> int:
         d, f = self.d_model, self.d_ff
         if self.num_experts:
-            per = 3 * d * f  # swiglu experts
-            return self.num_experts * per + d * self.num_experts + d  # + router + norm
+            per = 3 * d * f  # swiglu experts (the held ones)
+            return (self.num_experts_held * per + d * self.num_experts
+                    + d)  # + router + norm
         if self.mlp in ("swiglu", "geglu"):
             n = 3 * d * f
         else:
@@ -200,6 +244,22 @@ class ModelConfig:
             n += self.vocab_size * self.d_model
         n += self.d_model
         return n
+
+
+# Fields the JAX package's ModelConfig lacks. At their defaults a config
+# is one the JAX package can express, and ``shared_fields`` leaves them
+# out, so that it compares and hashes as the JAX package's does.
+PORT_ONLY_FIELDS = ("rope_yarn", "experts_held", "moe_dropless")
+
+
+def shared_fields(cfg: ModelConfig) -> dict:
+    """``dataclasses.asdict(cfg)`` without the port-only fields that are
+    at their defaults."""
+    out = dataclasses.asdict(cfg)
+    for f in dataclasses.fields(ModelConfig):
+        if f.name in PORT_ONLY_FIELDS and out[f.name] == f.default:
+            del out[f.name]
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,6 +9,7 @@ made once gives the same numbers. Norm scales stay fp32.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -16,7 +17,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import _shards
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN, ModelConfig, YaRN
 from repro_torch.sharding import gather_fsdp, shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -148,14 +149,60 @@ def _matmul_bias(x, w, b=None):
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
 
-def rope_freqs(cfg: ModelConfig, positions: torch.Tensor):
-    """positions [B, S] (int) -> (sin, cos) each [B, S, head_dim/2], fp32."""
+def rope_freqs(cfg: ModelConfig, positions: torch.Tensor, kind: str):
+    """positions [B, S] (int) -> (sin, cos) each [B, S, head_dim/2], fp32,
+    for a block of ``kind``: the ATTN blocks of a config with
+    ``rope_yarn`` rotate by YaRN's frequencies, with cos and sin times
+    its attention factor (``yarn_inv_freq``); every other block by
+    theta's."""
     dh = cfg.head_dim
+    if cfg.rope_yarn is not None and kind == ATTN:
+        inv, scale = yarn_inv_freq(cfg.rope_yarn, cfg.rope_theta, dh,
+                                   positions.device)
+        ang = positions[..., None].float() * inv
+        return torch.sin(ang) * scale, torch.cos(ang) * scale
     exps = torch.arange(0, dh, 2, dtype=torch.float32,
                         device=positions.device) / dh
     inv = 1.0 / (cfg.rope_theta ** exps)
     ang = positions[..., None].float() * inv
     return torch.sin(ang), torch.cos(ang)
+
+
+def yarn_correction_range(y: YaRN, theta: float,
+                          dh: int) -> tuple[int, int]:
+    """The frequency pairs over which YaRN's ramp runs: where a pair
+    turns ``beta_fast`` and ``beta_slow`` times over
+    ``original_max_positions``, rounded outward to whole pairs, within
+    [0, dh - 1] (Hugging Face's ``find_correction_range`` with
+    ``truncate``)."""
+    def pair(rotations: float) -> float:
+        return (dh * math.log(y.original_max_positions
+                              / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = math.floor(pair(y.beta_fast))
+    high = math.ceil(pair(y.beta_slow))
+    return max(low, 0), min(high, dh - 1)
+
+
+def yarn_inv_freq(y: YaRN, theta: float, dh: int,
+                  device) -> tuple[torch.Tensor, float]:
+    """(inverse frequencies [dh/2] fp32, attention factor): theta's
+    frequencies below the ramp, the same divided by ``factor`` above it,
+    blended linearly across it, as Hugging Face's
+    ``_compute_yarn_parameters`` computes them."""
+    pos_freqs = theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
+                                       device=device) / dh)
+    extrapolated = 1.0 / pos_freqs
+    interpolated = 1.0 / (y.factor * pos_freqs)
+    low, high = yarn_correction_range(y, theta, dh)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dh // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1 - ramp                 # the share of the original frequency
+    inv = interpolated * (1 - keep) + extrapolated * keep
+    return inv, y.attention_factor
 
 
 def apply_rope(x: torch.Tensor, sin: torch.Tensor,

@@ -30,6 +30,17 @@ dispatch above then runs on the local shards (``local_map``), and the
 TP shards' partial outputs are summed. Routing is per row, so every
 device's rows route as they would unsharded; the load-balance means are
 averaged over the batch shards.
+
+``apply_dropless`` is the other route, the one of a device that holds a
+share of the experts (``cfg.experts_held``, expert parallelism without
+its exchange) and drops nothing (``cfg.moe_dropless``): the router's
+softmax and top-k over every expert as above, then each (token, choice)
+whose expert is held is computed by that expert, with no capacity, and
+the rest are left out. The pairs are sorted by held expert (the others
+last) with the offsets kept on the device, so a CUDA graph can hold the
+pass: no ``nonzero``, no boolean indexing, no count read to the host.
+The experts' products are grouped over those offsets
+(``grouped_mm``), their cost following the rows routed here.
 """
 
 from __future__ import annotations
@@ -51,8 +62,10 @@ GROUP_TOKENS = 4096
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, device, dtype) -> dict:
     """Router and stacked expert weights in the JAX tree's layout:
-    ``router`` [D, E], ``w_gate``/``w_up`` [E, D, F], ``w_down`` [E, F, D]."""
-    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    ``router`` [D, E], ``w_gate``/``w_up`` [H, D, F], ``w_down`` [H, F, D]
+    for the H experts held (all E unless ``cfg.experts_held``)."""
+    lo, hi = cfg.held_range
+    d, f, e = cfg.d_model, cfg.d_ff, hi - lo
     s_in, s_out = d ** -0.5, f ** -0.5
 
     def normal(shape, scale):
@@ -60,7 +73,8 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, device, dtype) -> dict:
                 * scale).to(dtype)
 
     return {
-        "router": layers.init_linear(gen, d, e, device, dtype),
+        "router": layers.init_linear(gen, d, cfg.num_experts, device,
+                                     dtype),
         "w_gate": normal((e, d, f), s_in),
         "w_up": normal((e, d, f), s_in),
         "w_down": normal((e, f, d), s_out),
@@ -105,6 +119,96 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor
         return _apply_moe_sharded(cfg, p, x)
     y, f_e, p_e = _moe(cfg, p, x)
     return y, _aux_loss(cfg, f_e, p_e)
+
+
+def grouped_mm(a: torch.Tensor, b: torch.Tensor,
+               ends: torch.Tensor) -> torch.Tensor:
+    """Rows of a [M, K] in groups, group g being rows ends[g-1] ..
+    ends[g] - 1 (``ends`` [G] int32, on a's device), each times its
+    matrix b[g] [K, N]: [M, N], with rows past ends[-1] unspecified.
+    On a card ``torch._grouped_mm`` (CUTLASS's grouped GEMM, which reads
+    the offsets on the device and computes the rows they hold); on the
+    CPU the plain loop over the groups."""
+    if a.is_cuda:
+        return torch._grouped_mm(a, b, offs=ends)
+    parts, start = [], 0
+    for g, end in enumerate(ends.tolist()):
+        parts.append(a[start:end] @ b[g])
+        start = end
+    parts.append(a.new_zeros((a.shape[0] - start, b.shape[-1])))
+    return torch.cat(parts)
+
+
+class _PairRows(torch.autograd.Function):
+    """x [N, D] -> x[tok] [M, D], one row per (token, choice) pair in
+    expert order. The gradient of token t sums, in choice order, the rows
+    of its held pairs (``pos`` [N, K] their places, ``held`` [N, K]):
+    selected, not multiplied, since the rows of the others are ones the
+    grouped products leave unspecified, and summed without atomics, so a
+    replayed pass repeats it bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, tok, pos, held):
+        ctx.save_for_backward(pos, held)
+        return x[tok]
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, held = ctx.saved_tensors
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        return torch.where(held[..., None], g[pos], zero).sum(1), None, \
+            None, None
+
+
+def apply_dropless(cfg: ModelConfig, p: dict, x: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [B, S, D] -> (what the held experts give each token [B, S, D] in
+    x's dtype, the load-balance loss over every expert, fp32, and the
+    rows each held expert computed [H] fp32). ``p`` holds the router
+    over all ``num_experts`` and the held experts' weights, [H, ..]."""
+    if isinstance(x, DTensor):
+        raise NotImplementedError("the dropless expert layer runs on "
+                                  "plain tensors, not under a mesh")
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    lo, hi = cfg.held_range
+    H, N = hi - lo, B * S
+    xf = x.reshape(N, D)
+    logits = layers.apply_linear(p["router"], xf).float()        # [N, E]
+    probs = torch.softmax(logits, dim=-1)
+    idx, mask = topk_mask(probs, K)
+    gates = probs * mask
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    k_gate = torch.gather(gates, -1, idx).to(x.dtype)             # [N, K]
+
+    # Each pair's held expert, or H for the others; sorted stably, so
+    # each expert's rows stay in token order and the others come last.
+    local = idx - lo
+    held = (local >= 0) & (local < H)
+    key = torch.where(held, local, torch.full_like(local, H)).reshape(-1)
+    key, order = torch.sort(key, stable=True)
+    ends = torch.searchsorted(key, torch.arange(H, device=x.device),
+                              right=True, out_int32=True)         # [H]
+    pos = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=x.device))
+    pos = pos.view(N, K)                  # each pair's row in that order
+
+    xs = _PairRows.apply(xf, torch.div(order, K, rounding_mode="floor"),
+                         pos, held)                               # [NK, D]
+    h = (F.silu(grouped_mm(xs, p["w_gate"].to(x.dtype), ends))
+         * grouped_mm(xs, p["w_up"].to(x.dtype), ends))
+    ye = grouped_mm(h, p["w_down"].to(x.dtype), ends)
+
+    # Combine: each token's held pairs, selected (rows past the last
+    # held one are unspecified, and 0 x NaN is NaN), gated and summed
+    # in fp32, rounded once to x's dtype.
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    got = torch.where(held[..., None], ye[pos], zero)            # [N,K,D]
+    y = (k_gate.float()[..., None] * got.float()).sum(dim=1).to(x.dtype)
+
+    rows = torch.diff(ends, prepend=ends.new_zeros(1)).float()
+    aux = _aux_loss(cfg, mask.mean(dim=0), probs.mean(dim=0))
+    return y.view(B, S, D), aux, rows
 
 
 def _aux_loss(cfg: ModelConfig, f_e, p_e):

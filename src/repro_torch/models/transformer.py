@@ -164,16 +164,19 @@ def params_device(params: dict) -> torch.device:
 # Full sequence (train-style forward / prefill)
 # ---------------------------------------------------------------------------
 
-def _mlp_half(cfg: ModelConfig, kind: str, p: dict,
-              x: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(x + MLP(norm(x)), the MoE's aux loss or None)."""
+def _mlp_half(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor):
+    """(x + MLP(norm(x)), the MoE's aux loss or None, the rows each held
+    expert computed [H] or None: ``_Block``)."""
     if kind == MAMBA:                   # the Mamba block subsumes the MLP
-        return x, None
+        return x, None, None
     h = layers.apply_norm(cfg, p["mlp_norm"], x)
+    if cfg.moe_dropless:
+        h, aux, rows = moe.apply_dropless(cfg, p["mlp"], h)
+        return x + h, aux, rows
     if cfg.num_experts:
         h, aux = moe.apply_moe(cfg, p["mlp"], h)
-        return x + h, aux
-    return x + layers.apply_mlp(cfg, p["mlp"], h), None
+        return x + h, aux, None
+    return x + layers.apply_mlp(cfg, p["mlp"], h), None, None
 
 
 def _positions(S: int, device) -> torch.Tensor:
@@ -183,8 +186,9 @@ def _positions(S: int, device) -> torch.Tensor:
 
 def _apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, memory: Optional[torch.Tensor],
-                 impl: str) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One block over the full sequence: (x, the MoE's aux loss or None)."""
+                 impl: str):
+    """One block over the full sequence: (x, the MoE's aux loss or None,
+    its held experts' rows or None)."""
     h = layers.apply_norm(cfg, p["norm"], x)
     if kind == RGLRU:
         h, _ = rglru.apply_rglru_block(cfg, p["rglru"], h, impl=impl)
@@ -199,26 +203,14 @@ def _apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
 
 
 def _residual(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
-              h: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """x + h, then the MLP half: (x, the MoE's aux loss or None), the
-    residual stream batch-sharded after each add (the JAX package's
-    constraints in ``_apply_block``; here in every entry point's blocks,
-    since DTensor otherwise may leave the stream sharded over its
-    sequence)."""
-    x, aux = _mlp_half(cfg, kind, p, shard(x + h, "dp", None, None))
-    return shard(x, "dp", None, None), aux
-
-
-def _apply_superblock(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                      positions: torch.Tensor,
-                      memory: Optional[torch.Tensor], impl: str):
-    """``cfg.pattern`` once: (x, the sum of its aux losses, fp32)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, kind in enumerate(cfg.pattern):
-        x, a = _apply_block(cfg, kind, p[str(i)], x, positions, memory, impl)
-        if a is not None:
-            aux = aux + a
-    return x, aux
+              h: torch.Tensor):
+    """x + h, then the MLP half: (x, the MoE's aux loss or None, the held
+    experts' rows or None), the residual stream batch-sharded after each
+    add (the JAX package's constraints in ``_apply_block``; here in every
+    entry point's blocks, since DTensor otherwise may leave the stream
+    sharded over its sequence)."""
+    x, aux, rows = _mlp_half(cfg, kind, p, shard(x + h, "dp", None, None))
+    return shard(x, "dp", None, None), aux, rows
 
 
 def forward(cfg: ModelConfig, params: dict, *,
@@ -227,19 +219,26 @@ def forward(cfg: ModelConfig, params: dict, *,
             memory: Optional[torch.Tensor] = None,
             remat: bool = False,
             impl: str = "auto",
-            resid_tp: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+            resid_tp: bool = False,
+            stats: Optional[dict] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over ``tokens`` [B,S] or frame
     ``embeddings`` [B,S,D] (audio), with frontend ``memory`` [B,T,D] for
     cross-attention blocks. Returns (hidden [B,S,D], aux_loss: the sum of
     the MoE layers' load-balance losses, fp32, 0 without experts).
     ``impl`` picks the attention and scan route (see ``prefill``).
 
-    ``remat=True`` recomputes each superblock in the backward pass
-    instead of keeping its activations (``torch.utils.checkpoint``; the
-    JAX package's ``jax.checkpoint`` with ``nothing_saveable``): only the
-    residual stream between superblocks is saved. The ``tail`` blocks are
-    not recomputed, as in the JAX package. Nothing in a block draws
-    random numbers, so no RNG state is kept for the recomputation.
+    ``remat=True`` recomputes each block in the backward pass instead of
+    keeping its activations (``torch.utils.checkpoint``; the JAX
+    package's ``jax.checkpoint`` with ``nothing_saveable``, which it
+    applies to a superblock): only the residual stream between blocks is
+    saved, so the backward pass rebuilds one block at a time, not a
+    whole period of the pattern. The ``tail`` blocks are not recomputed,
+    as in the JAX package. Nothing in a block draws random numbers, so no
+    RNG state is kept for the recomputation.
+
+    With ``stats`` (a dict), a stack of dropless expert layers puts
+    there ``moe_rows`` [layers, H] fp32: the rows each held expert of
+    each layer computed.
 
     ``resid_tp`` feature-shards the residual stream at superblock
     boundaries under a sharding context (FSDP+SP): the tensors remat
@@ -253,20 +252,30 @@ def forward(cfg: ModelConfig, params: dict, *,
     S = x.shape[1]
     positions = _positions(S, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    rows = []
     for blk in params.get("blocks", []):
-        if remat:
-            x, a = torch.utils.checkpoint.checkpoint(
-                _apply_superblock, cfg, blk, x, positions, memory, impl,
-                use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, a = _apply_superblock(cfg, blk, x, positions, memory, impl)
+        for i, kind in enumerate(cfg.pattern):
+            args = (cfg, kind, blk[str(i)], x, positions, memory, impl)
+            if remat:
+                x, a, r = torch.utils.checkpoint.checkpoint(
+                    _apply_block, *args, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                x, a, r = _apply_block(*args)
+            if a is not None:
+                aux_total = aux_total + a
+            if r is not None:
+                rows.append(r)
         x = shard(x, *resid_spec)
-        aux_total = aux_total + a
     for i, kind in enumerate(cfg.remainder):
-        x, a = _apply_block(cfg, kind, params["tail"][str(i)], x, positions,
-                            memory, impl)
+        x, a, r = _apply_block(cfg, kind, params["tail"][str(i)], x,
+                               positions, memory, impl)
         if a is not None:
             aux_total = aux_total + a
+        if r is not None:
+            rows.append(r)
+    if stats is not None and rows:
+        stats["moe_rows"] = torch.stack(rows)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     return x, aux_total
 
@@ -365,13 +374,16 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     ``embeddings`` with per-frame ``targets`` at ``mask``; plus
     ``image_embeds`` for cross-attention stacks. The MoE aux loss is
     added. ``impl`` reaches ``forward``: training passes "dense", since
-    the kernels have no backward pass. ``resid_tp`` reaches ``forward``."""
+    the kernels have no backward pass. ``resid_tp`` reaches ``forward``.
+    A stack of dropless expert layers also reports ``moe_rows``, the rows
+    each held expert of each layer computed (``forward``'s ``stats``)."""
+    stats: dict = {}
     hidden, aux = forward(
         cfg, params,
         tokens=batch.get("tokens"),
         embeddings=batch.get("embeddings"),
         memory=batch.get("image_embeds"),
-        remat=remat, impl=impl, resid_tp=resid_tp)
+        remat=remat, impl=impl, resid_tp=resid_tp, stats=stats)
     logits = logits_from_hidden(cfg, params, hidden)
     mask = batch.get("mask")
     if cfg.causal and "targets" not in batch:
@@ -381,7 +393,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     else:
         # Encoder (HuBERT): predict per-position targets at masked frames.
         ce = cross_entropy(cfg, logits, batch["targets"], mask)
-    return ce + aux, {"ce": ce, "aux": aux}
+    return ce + aux, {"ce": ce, "aux": aux, **stats}
 
 
 def prefill(cfg: ModelConfig, params: dict, *,
@@ -427,7 +439,7 @@ def prefill(cfg: ModelConfig, params: dict, *,
                 impl=impl)
             caches[group, r, i] = attention.build_cache_from_full(
                 cfg, k, v, context_len, kind, cache_dtype)
-        x, _ = _residual(cfg, kind, p, x, h)
+        x, _, _ = _residual(cfg, kind, p, x, h)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     logits = layers.lm_logits(cfg, params["embed"], x)
     return shard(logits, "dp", None, "tp"), _assemble_state(cfg, caches)
@@ -696,7 +708,7 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
         else:
             h, _ = attention.decode_attention(cfg, p["attn"], h, cache, t,
                                               kind, impl=attn_impl)
-        x, _ = _residual(cfg, kind, p, x, h)
+        x, _, _ = _residual(cfg, kind, p, x, h)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     logits = layers.lm_logits(cfg, params["embed"], x)
     return shard(logits, "dp", None, "tp"), state
@@ -726,7 +738,7 @@ def prefill_extend(cfg: ModelConfig, params: dict, state: dict,
         cache = _leaf_view(state, group, r, i)
         h = layers.apply_norm(cfg, p["norm"], x)
         h, _ = attention.extend_attention(cfg, p["attn"], h, cache, t0, kind)
-        x, _ = _residual(cfg, kind, p, x, h)
+        x, _, _ = _residual(cfg, kind, p, x, h)
     x = layers.apply_norm(cfg, params["final_norm"], x[:, -1:])
     logits = layers.lm_logits(cfg, params["embed"], x)
     return shard(logits, "dp", None, "tp"), state

@@ -65,7 +65,11 @@ or ``train.replay`` where the pass is replayed from a CUDA graph
 ``train.capture`` on the step that captures it; then ``train.sync``,
 the loss read back to the host) and ``train.update`` (with
 ``train.optimizer``). On a CUDA device the root carries
-``alloc_retries``, the caching allocator's retries during the step. The
+``alloc_retries``, the caching allocator's retries during the step. A
+task with ``read_step`` reads the step's other readings back in the
+same copy as the loss (the LM task of a dropless expert stack: its held
+experts' rows); each reading ``r`` adds to the counter ``train.r`` and
+is an attribute of that name on the root. The
 spans land in the process's ring (``core.telemetry``), on the wall clock;
 an untraced step pays one context-variable read a span. A peer's
 ``compute_grads`` carries the trace in its courier envelope, so the
@@ -340,6 +344,7 @@ class LearnerWorker:
         self._published: Optional[int] = None
         self._restored_from: Optional[int] = None
         self._held = None
+        self._readings: dict = {}
 
         params = to_device(task.init_params(cfg.seed), self._device)
         like = {"params": params, "opt": opt_lib.init_opt_state(params),
@@ -472,7 +477,12 @@ class LearnerWorker:
             loss, grads = full(loss), gathered(grads)
         self._held = grads if hold else None
         with telemetry.span("train.sync"):
-            loss = float(loss)
+            read = getattr(self._task, "read_step", None)
+            loss, readings = read(loss) if read else (float(loss), {})
+        reg = telemetry.metrics()
+        self._readings = {f"train.{k}": v for k, v in readings.items()}
+        for k, v in self._readings.items():
+            reg.counter(k).inc(int(v))
         return loss, grads
 
     def _update(self, strategy: str, payloads: list) -> None:
@@ -644,11 +654,13 @@ class LearnerWorker:
         with telemetry.activate(telemetry.start_trace()), \
                 telemetry.span("train.step", step=k) as attrs:
             retries = self._alloc_retries()
+            self._readings = {}
             try:
                 return self._chief_step(ctx)
             finally:
                 if retries is not None:
                     attrs["alloc_retries"] = self._alloc_retries() - retries
+                attrs.update(self._readings)
 
     # -- main loop -----------------------------------------------------------
     def run(self) -> None:

@@ -143,7 +143,9 @@ def make_grad_fn(model_cfg: ModelConfig, train_cfg: TrainConfig):
     the training fabric can aggregate gradients across learners before
     applying the update. With several microbatches the metrics are
     ``{"ce": loss, "aux": 0}``, as the JAX package reports them
-    (ROADMAP.md C16)."""
+    (ROADMAP.md C16), and, for a stack of dropless expert layers,
+    ``moe_rows`` [layers, H]: the rows each held expert computed, summed
+    over the microbatches on the device."""
     grad_fn = _value_and_grad(
         make_loss_fn(model_cfg, train_cfg.remat, train_cfg.resid_tp))
     nm = train_cfg.num_microbatches
@@ -153,18 +155,21 @@ def make_grad_fn(model_cfg: ModelConfig, train_cfg: TrainConfig):
         if nm == 1:
             return grad_fn(params, batch)
         micro = split_batch(batch, nm)
-        loss_sum, g_acc = None, None
+        loss_sum, g_acc, rows = None, None, None
         for i in range(nm):
-            loss, _aux, g = grad_fn(params, tree.tree_map(lambda x: x[i],
-                                                          micro), mb=i)
+            loss, aux, g = grad_fn(params, tree.tree_map(lambda x: x[i],
+                                                         micro), mb=i)
             with telemetry.span("train.accumulate", mb=i):
                 if g_acc is None:           # 0 + loss and 0 + g: exact
                     loss_sum = loss.float()
                     g_acc = tree.tree_map(lambda b: b.to(acc_dt), g)
+                    rows = aux.get("moe_rows")
                 else:
                     loss_sum = loss_sum + loss
                     tree.tree_map(lambda a, b: a.add_(b.to(acc_dt)), g_acc,
                                   g)
+                    if rows is not None:
+                        rows = rows + aux["moe_rows"]
                 del g
                 if i == nm - 1:     # the mean, in the last one's span
                     # A fill on the device: a CUDA graph can hold it,
@@ -175,7 +180,10 @@ def make_grad_fn(model_cfg: ModelConfig, train_cfg: TrainConfig):
                     grads = tree.tree_map(
                         lambda g: g.div_(n).to(torch.float32), g_acc)
                     loss = loss_sum / n
-        return loss, {"ce": loss, "aux": torch.zeros_like(loss)}, grads
+        metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
+        if rows is not None:
+            metrics["moe_rows"] = rows
+        return loss, metrics, grads
 
     return compute_grads
 

@@ -25,6 +25,7 @@ from torch.distributed.tensor import DTensor
 from repro import configs as jconfigs
 from repro.ckpt import checkpoint as jckpt
 from repro.models import transformer as jt
+from repro_torch import configs as tconfigs
 from repro_torch.ckpt import checkpoint
 from repro_torch.models import convert
 from repro_torch.models import transformer as tt
@@ -339,7 +340,7 @@ def test_config_hash_equals_jax_package():
 
 
 def test_port_published_version_restores_bit_for_bit_in_jax(tmp_path):
-    cfg = jconfigs.get_reduced("qwen2-1.5b")
+    cfg = tconfigs.get_reduced("qwen2-1.5b")
     jp = jt.init_params(cfg, jax.random.key(3))
     port = convert.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
                                      device="cpu", dtype=torch.float32)
@@ -355,7 +356,7 @@ def test_port_published_version_restores_bit_for_bit_in_jax(tmp_path):
 
 
 def test_jax_published_version_restores_bit_for_bit_in_port(tmp_path):
-    cfg = jconfigs.get_reduced("recurrentgemma-2b")
+    cfg = tconfigs.get_reduced("recurrentgemma-2b")
     jp = jt.init_params(cfg, jax.random.key(4))
     jckpt.ModelStore(str(tmp_path)).publish_version(2, jp)
     like = convert.params_to_numpy(cfg, tt.init_params(cfg, seed=0,
@@ -372,7 +373,7 @@ def test_jax_published_version_restores_bit_for_bit_in_port(tmp_path):
 def test_params_to_numpy_inverts_params_from_numpy_bit_for_bit(arch):
     """JAX -> port (fp32) -> JAX: the same tree structure, every leaf
     fp32 and bit-equal, ``blocks`` re-stacked on the repeat axis."""
-    cfg = jconfigs.get_reduced(arch)
+    cfg = tconfigs.get_reduced(arch)
     jp = jax.tree.map(np.asarray, jt.init_params(cfg, jax.random.key(1)))
     port = convert.params_from_numpy(cfg, jp, device="cpu",
                                      dtype=torch.float32)
@@ -390,7 +391,7 @@ def test_params_to_numpy_inverts_params_from_numpy_bit_for_bit(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_params_to_numpy_widens_bf16_exactly(arch):
-    cfg = jconfigs.get_reduced(arch)
+    cfg = tconfigs.get_reduced(arch)
     port = tt.init_params(cfg, seed=2, device="cpu")       # bf16 matrices
     back = convert.params_to_numpy(cfg, port)
     blocks = {k: v for k, v in port.items() if k != "blocks"}
@@ -412,7 +413,7 @@ def test_params_to_numpy_widens_bf16_exactly(arch):
 
 
 def test_params_to_numpy_refuses_wrong_repeat_count():
-    cfg = dataclasses.replace(jconfigs.get_reduced("qwen2-1.5b"))
+    cfg = dataclasses.replace(tconfigs.get_reduced("qwen2-1.5b"))
     port = tt.init_params(cfg, seed=0, device="cpu")
     port["blocks"] = port["blocks"][:1]
     with pytest.raises(ValueError, match="repeats"):

@@ -735,3 +735,69 @@ def test_cuda_grad_pass_replays_every_family(cuda, arch):
         opt_lib.apply_updates_(tc.optimizer, ref, want_grads, ref_opt)
     assert {k: c.value - before[k] for k, c in counters.items()} == {
         "captures": 1, "replays": 2, "eager": 1}
+
+
+@pytest.mark.gpu
+def test_grouped_expert_products_match_the_plain_loop(cuda):
+    """The dropless expert layer's grouped products on the card (CUTLASS's
+    grouped GEMM through ``torch._grouped_mm``) against the plain loop
+    over the groups in fp32, at Mellum2's expert widths with uneven
+    groups, an empty one among them, and rows past the last group that
+    the product leaves alone: the output and both gradients within the
+    bf16 bound above, an empty group's weight gradient zero."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    D, F, M = 2304, 896, 16384
+    counts = [700, 0, 1500, 1024, 1, 900, 2000, 1100]
+    ends = torch.tensor(np.cumsum(counts), dtype=torch.int32, device=cuda)
+    n = int(ends[-1])
+    a = _randn(gen, (M, D), torch.bfloat16, cuda).requires_grad_()
+    b = (torch.randn((len(counts), D, F), generator=gen, device=cuda)
+         * D ** -0.5).to(torch.bfloat16).requires_grad_()
+    g = _randn(gen, (M, F), torch.bfloat16, cuda)
+    y = moe.grouped_mm(a, b, ends)
+    (y[:n].float() * g[:n].float()).sum().backward()
+    a32 = a.detach().float().cpu().requires_grad_()
+    b32 = b.detach().float().cpu().requires_grad_()
+    want = moe.grouped_mm(a32, b32, ends.cpu())
+    (want[:n] * g[:n].float().cpu()).sum().backward()
+    _assert_matches_plain(y[:n], want[:n].to(cuda))
+    _assert_matches_plain(a.grad[:n], a32.grad[:n].to(cuda))
+    for grp in range(len(counts)):
+        if counts[grp]:
+            _assert_matches_plain(b.grad[grp], b32.grad[grp].to(cuda))
+        else:
+            assert not bool(b.grad[grp].any())
+
+
+@pytest.mark.gpu
+def test_a_mellum_pass_reads_nothing_back_to_the_host(cuda):
+    """The reduced Mellum2's gradient pass (its sliding and full layers,
+    the dropless layer over its held experts, two microbatches, remat)
+    makes no synchronising call once warm, so the learner's graph holds
+    it whole: the eager pass runs under the sync debug mode's "error",
+    and ``Replayed`` captures it, then replays the held experts' rows
+    that the eager pass reports."""
+    from repro_torch.train.train_step import (Replayed, TrainConfig,
+                                              make_grad_fn)
+    cfg = configs.get_reduced("mellum2-12b-a2.5b")
+    tc = TrainConfig(num_microbatches=2, remat="full")
+    params = transformer.init_params(cfg, 0, device=cuda,
+                                     dtype=torch.float32)
+    batch = _train_batch(cfg, np.random.default_rng(0), cuda)
+    fn = make_grad_fn(cfg, tc)
+    fn(params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, aux, _ = fn(params, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rows = aux["moe_rows"].clone()
+    assert rows.shape == (cfg.num_layers, cfg.num_experts_held)
+    replayed = Replayed(fn, tc.num_microbatches)
+    for _ in range(3):
+        r_loss, r_aux, _ = replayed(params, batch)
+    assert replayed._graph is not None
+    assert torch.equal(r_loss, loss)
+    assert torch.equal(r_aux["moe_rows"], rows)

@@ -19,9 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro import configs as jconfigs
 from repro.models import layers as jlayers
 from repro.models import transformer as jt
+from repro_torch import configs as tconfigs
 from repro_torch.models import convert
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as tt
@@ -29,7 +29,7 @@ from repro_torch.serve.engine import ServeEngine
 
 torch.set_num_threads(1)
 
-HUB = dataclasses.replace(jconfigs.get_reduced("hubert-xlarge"),
+HUB = dataclasses.replace(tconfigs.get_reduced("hubert-xlarge"),
                           compute_dtype="float32")
 CONV_TOL = dict(rtol=1e-5, atol=1e-5)
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -82,7 +82,7 @@ def test_conv_pos_padding_is_xla_same():
 
 
 def test_init_keeps_the_jax_layout():
-    cfg = jconfigs.get_reduced("hubert-xlarge")
+    cfg = tconfigs.get_reduced("hubert-xlarge")
     tp = tt.init_params(cfg, seed=0, device="cpu")
     shapes = jt.param_shapes(cfg)
     assert tuple(tp["embed"]["conv_pos"].shape) == \
@@ -117,7 +117,7 @@ def test_encoder_is_bidirectional(hubert):
 
 
 def test_bf16_forward_close_to_jax():
-    cfg = jconfigs.get_reduced("hubert-xlarge")
+    cfg = tconfigs.get_reduced("hubert-xlarge")
     jp = jt.init_params(cfg, jax.random.key(1))
     tp = convert.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
                                    device="cpu")

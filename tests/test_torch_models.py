@@ -33,10 +33,11 @@ from repro_torch.models import convert
 from repro_torch.models import rglru as trglru
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as tt
+from repro_torch.models.config import shared_fields
 
 torch.set_num_threads(1)
 
-BASE = jconfigs.get_reduced("qwen2-1.5b")
+BASE = configs.get_reduced("qwen2-1.5b")
 CFG32 = dataclasses.replace(BASE, compute_dtype="float32")
 SWA32 = dataclasses.replace(CFG32, pattern=("swa",), window=6)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -80,11 +81,14 @@ def _tokens(B, S, seed=0):
 
 
 def test_configs_copy_matches_jax():
+    # The port's own fields (experts held, dropless routing, YaRN) are
+    # at their defaults for every architecture the JAX package has, and
+    # every other field is the JAX package's.
     for name in jconfigs.ARCH_NAMES:
-        assert dataclasses.asdict(configs.get(name)) == \
-            dataclasses.asdict(jconfigs.get(name))
-        assert dataclasses.asdict(configs.get_reduced(name)) == \
-            dataclasses.asdict(jconfigs.get_reduced(name))
+        for tcfg, jcfg in ((configs.get(name), jconfigs.get(name)),
+                           (configs.get_reduced(name),
+                            jconfigs.get_reduced(name))):
+            assert shared_fields(tcfg) == dataclasses.asdict(jcfg)
 
 
 def test_converter_unstacks_and_keeps_norms_fp32(model):
@@ -278,7 +282,7 @@ def test_every_arch_is_supported_and_initialises():
 @pytest.fixture(scope="module", params=["qwen3-8b", "starcoder2-3b",
                                         "command-r-plus-104b"])
 def dense_model(request):
-    cfg = dataclasses.replace(jconfigs.get_reduced(request.param),
+    cfg = dataclasses.replace(configs.get_reduced(request.param),
                               compute_dtype="float32")
     jp = jt.init_params(cfg, jax.random.key(0))
     tp = convert.params_from_numpy(cfg, _np_tree(jp), device="cpu")
@@ -328,7 +332,7 @@ def test_dense_configs_decode_step_match(dense_model, impl):
 
 # -- RecurrentGemma (RG-LRU + LOCAL attention) ---------------------------------
 
-RG32 = dataclasses.replace(jconfigs.get_reduced("recurrentgemma-2b"),
+RG32 = dataclasses.replace(configs.get_reduced("recurrentgemma-2b"),
                            compute_dtype="float32")
 RG_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -489,7 +493,7 @@ def test_rg_decode_state_and_slot_writes_match():
 
 # -- Falcon-Mamba (Mamba-1 blocks) ----------------------------------------------
 
-FM32 = dataclasses.replace(jconfigs.get_reduced("falcon-mamba-7b"),
+FM32 = dataclasses.replace(configs.get_reduced("falcon-mamba-7b"),
                            compute_dtype="float32")
 
 
@@ -623,7 +627,7 @@ def test_fm_decode_steps_match(fm_model, impl):
 def test_fm_bf16_compute_logits_close():
     """At the config's own bf16 compute (A_log and D stay fp32 in both),
     logits agree to a bf16-sized tolerance, as for qwen2."""
-    base = jconfigs.get_reduced("falcon-mamba-7b")
+    base = configs.get_reduced("falcon-mamba-7b")
     jp = jt.init_params(base, jax.random.key(0))
     tp = convert.params_from_numpy(base, _np_tree(jp), device="cpu")
     toks = _fm_tokens(2, 9, seed=21)

@@ -21,12 +21,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro import configs as jconfigs
 from repro.models import layers as jlayers
 from repro.models import moe as jmoe
 from repro.models import transformer as jt
 from repro.serve import decode as jdecode
 from repro.serve.engine import ServeEngine as JaxServeEngine
+from repro_torch import configs as tconfigs
 from repro_torch.launch import serve as tserve
 from repro_torch.models import convert
 from repro_torch.models import moe as tmoe
@@ -41,7 +41,7 @@ LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 CACHE_TOL = dict(rtol=1e-2, atol=1e-2)
 # Capacity factor 1.0 with top-2 of 4 experts: C = S / 2 slots per
 # expert, so a router that sends every token to one expert drops half.
-MIX = dataclasses.replace(jconfigs.get_reduced("mixtral-8x7b"),
+MIX = dataclasses.replace(tconfigs.get_reduced("mixtral-8x7b"),
                           compute_dtype="float32", moe_capacity_factor=1.0)
 
 
@@ -191,7 +191,7 @@ def mix_model(request):
     """The reduced config at fp32 (4 experts top-2, window 16), its own
     capacity factor 8.0 (nothing dropped) or 1.0 (tokens dropped)."""
     arch, cf = request.param
-    cfg = dataclasses.replace(jconfigs.get_reduced(arch),
+    cfg = dataclasses.replace(tconfigs.get_reduced(arch),
                               compute_dtype="float32")
     if cf is not None:
         cfg = dataclasses.replace(cfg, moe_capacity_factor=cf)
@@ -330,7 +330,7 @@ def test_mixtral_engine_matches_solo_serving(mix_model):
 
 
 def test_mixtral_init_keeps_the_jax_layout():
-    cfg = jconfigs.get_reduced("mixtral-8x7b")
+    cfg = tconfigs.get_reduced("mixtral-8x7b")
     tp = tt.init_params(cfg, seed=0, device="cpu")
     jshapes = jt.param_shapes(cfg)
     mlp = tp["blocks"][0]["0"]["mlp"]

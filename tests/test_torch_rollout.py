@@ -14,6 +14,7 @@ import time
 import numpy as np
 import pytest
 
+from repro_torch import configs as tconfigs
 from repro_torch import core as lp
 from repro_torch.core.discovery import Heartbeater, Registry
 from repro_torch.serve.rollout import RolloutController
@@ -505,20 +506,22 @@ def test_jax_published_store_serves_same_greedy_tokens_in_both(tmp_path):
     from repro.models import transformer as jt
     from repro_torch.launch.serve import EngineServer
 
-    cfg = dataclasses.replace(jconfigs.get_reduced("qwen2-1.5b"),
+    jcfg = dataclasses.replace(jconfigs.get_reduced("qwen2-1.5b"),
+                               compute_dtype="float32")
+    cfg = dataclasses.replace(tconfigs.get_reduced("qwen2-1.5b"),
                               compute_dtype="float32")
     store_dir = str(tmp_path / "store")
     store = JaxModelStore(store_dir)
     for v in (0, 1):
         store.publish_version(
-            v, jt.init_params(cfg, jax.random.key(v)),
-            metadata={"step": v, "config_hash": config_hash(cfg)})
+            v, jt.init_params(jcfg, jax.random.key(v)),
+            metadata={"step": v, "config_hash": config_hash(jcfg)})
     prompts = [np.random.default_rng(s).integers(
         0, cfg.vocab_size, n).astype(np.int32) for s, n in ((0, 6), (1, 11))]
     kw = dict(max_new=5, num_slots=2, context_len=32, store_dir=store_dir,
               version=0)
     outs = {}
-    for pkg, server in (("jax", JaxEngineServer(cfg, **kw)),
+    for pkg, server in (("jax", JaxEngineServer(jcfg, **kw)),
                         ("port", EngineServer(cfg, device="cpu", **kw))):
         try:
             outs[pkg] = [np.asarray(server.generate(p)) for p in prompts]

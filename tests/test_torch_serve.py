@@ -23,10 +23,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro import configs as jconfigs
 from repro.models import transformer as jt
 from repro.serve import decode as jdecode
 from repro.serve.engine import ServeEngine as JaxServeEngine
+from repro_torch import configs as tconfigs
 from repro_torch import core as lp
 from repro_torch.launch import serve as tserve
 from repro_torch.models import convert
@@ -35,7 +35,7 @@ from repro_torch.serve.engine import ServeEngine
 
 torch.set_num_threads(1)
 
-CFG = jconfigs.get_reduced("qwen2-1.5b")
+CFG = tconfigs.get_reduced("qwen2-1.5b")
 CFG32 = dataclasses.replace(CFG, compute_dtype="float32")
 L = 24          # engine context (slot ring length)
 MAX_NEW = 4
@@ -403,7 +403,7 @@ def test_engine_default_device_is_cuda(params):
 
 # -- RecurrentGemma (RG-LRU + LOCAL) through the engine -------------------------
 
-RG = jconfigs.get_reduced("recurrentgemma-2b")
+RG = tconfigs.get_reduced("recurrentgemma-2b")
 
 
 @pytest.fixture(scope="module")
@@ -485,7 +485,7 @@ def test_rg_generate_refuses_padded_rows(rg_params):
 
 # -- Falcon-Mamba (Mamba-1 blocks) through the engine ---------------------------
 
-FM = jconfigs.get_reduced("falcon-mamba-7b")
+FM = tconfigs.get_reduced("falcon-mamba-7b")
 
 
 @pytest.fixture(scope="module")

@@ -290,7 +290,7 @@ def test_only_the_learners_task_wraps_the_gradient_pass():
 
 
 def test_decay_mask_leaf_set_equals_jax():
-    for arch in configs.ARCH_NAMES:
+    for arch in jconfigs.ARCH_NAMES:
         cfg = configs.get_reduced(arch)
         tp, jp = _params(cfg)
         want = {jax.tree_util.keystr(p)
@@ -304,7 +304,7 @@ def test_decay_mask_leaf_set_equals_jax():
 
 # -- loss and gradients -------------------------------------------------------
 
-@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+@pytest.mark.parametrize("arch", jconfigs.ARCH_NAMES)
 def test_loss_and_grads_match_jax(arch):
     cfg = _fp32(arch)
     tp, jp = _params(cfg)

@@ -21,7 +21,6 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from repro import configs as jconfigs
 from repro.ckpt import elastic as jelastic
 from repro.core.courier import inprocess as jinprocess
 from repro.core.discovery import Registry as JRegistry
@@ -519,7 +518,7 @@ def test_fill_missing_supplies_ef_residual_on_old_checkpoints(tmp_path):
 def _qwen2():
     return (dataclasses.replace(configs.get_reduced("qwen2-1.5b"),
                                 compute_dtype="float32"),
-            dataclasses.replace(jconfigs.get_reduced("qwen2-1.5b"),
+            dataclasses.replace(configs.get_reduced("qwen2-1.5b"),
                                 compute_dtype="float32"))
 
 

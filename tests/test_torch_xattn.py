@@ -20,10 +20,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro import configs as jconfigs
 from repro.models import attention as jattn
 from repro.models import transformer as jt
 from repro.serve import decode as jdecode
+from repro_torch import configs as tconfigs
 from repro_torch.models import attention as tattn
 from repro_torch.models import convert
 from repro_torch.models import transformer as tt
@@ -32,7 +32,7 @@ from repro_torch.serve.engine import ServeEngine
 
 torch.set_num_threads(1)
 
-VLM = dataclasses.replace(jconfigs.get_reduced("llama-3.2-vision-11b"),
+VLM = dataclasses.replace(tconfigs.get_reduced("llama-3.2-vision-11b"),
                           compute_dtype="float32")
 TOL = dict(rtol=1e-4, atol=1e-4)
 CACHE_TOL = dict(rtol=1e-2, atol=1e-2)
