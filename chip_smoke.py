@@ -19,7 +19,12 @@ each of which ends the run with a non-zero exit on failure:
    the 1601-slot image memory) and at edge shapes, to a tolerance
    scaled to the output (shown to reject a dropped tile, a scan whose
    state was reset, or one whose output reads the previous state), and
-   time kernel, plain version and a library yardstick;
+   time kernel, plain version and a library yardstick; then K3's
+   training route at the two training cells' attention shapes (Qwen2
+   4 x 1024, Mellum2's sliding and full layers at 8192): the forward's
+   log-sum-exp instance and the backward kernels against the plain
+   versions, two backward calls bit-equal, and their times beside SDPA's
+   backward;
 4. parity: full-width Qwen2-1.5B, RecurrentGemma-2B and Falcon-Mamba-7B
    (seeded random weights, fp32 compute) through ``ServeEngine``: greedy
    tokens through the kernels must equal those of the plain PyTorch path
@@ -50,8 +55,8 @@ each of which ends the run with a non-zero exit on failure:
    call on the card against the CPU at fp32 (loss, every gradient leaf,
    then ``apply_updates``); all 28 layers with fp32 master weights, bf16
    compute and remat taking six ``make_train_step`` steps of 8 x 1024
-   tokens in two microbatches (step time, tokens/s, MFU, memory peak, a
-   profiled step); and ``launch.train.build_program`` (LM100M, two
+   tokens in two microbatches, attention through K3 and its backward
+   (step time, tokens/s, MFU, memory peak, a profiled step); and ``launch.train.build_program`` (LM100M, two
    learners) on the thread launcher, where the chief is killed after its
    first publish and must resume from the published version, and the
    evaluator scores versions through K3 and agrees with its dense loss;
@@ -64,7 +69,8 @@ each of which ends the run with a non-zero exit on failure:
    each traced fake and then run for real with DTensor parameters under
    ``use_sharding``. The counted FLOPs must agree within 1%, the peaks
    within a factor of 2, and the sharded train step's loss must equal
-   the unsharded step's;
+   the unsharded step's (whose attention is held to the DTensor step's
+   dense path);
 10. mesh: on a 1x1 CUDA mesh (nccl, a group of one), full-width
    Qwen2-1.5B cut to 4 layers: its fp32 {params, opt, ef} state placed
    by the sharding rules (``ckpt.elastic.reshard``), saved, restored
@@ -73,7 +79,8 @@ each of which ends the run with a non-zero exit on failure:
    read GB/s); ``compress_reduce_pod`` the identity with one pod, and
    ``collective_matmul`` at Qwen2's MLP shape equal to ``torch.matmul``
    to the bit; one LM100M learner with and without the mesh, whose
-   losses must be equal to the bit (step times beside each other); and
+   losses must be equal to the bit (the plain learner's attention held
+   to the mesh's dense path; step times beside each other); and
    phase 8's training program with its learners on the mesh, where the
    chief's respawn must restore onto the mesh;
 11. examples: every ``repro_torch.examples`` program on the card, each
@@ -343,17 +350,23 @@ def _paged_inputs(gen, B, H, KV, dh, n, ps, dtype):
     return q, kp, vp, pages, valid
 
 
-def _compare(out, expect) -> dict:
+def _compare(out, expect, grad: bool = False) -> dict:
     """Error of ``out`` against the plain ``expect``, beside the output's
     scale, and the tolerances for ``out``'s dtype (see BF16_ULPS). A bf16
     bound is set row by row over the last dim (one head's output vector):
     2 ulps at that row's largest |plain| value, so a row of small values
-    is not judged by the largest value elsewhere in the output."""
+    is not judged by the largest value elsewhere in the output. A
+    gradient (``grad``) may have rows that are a cancellation (dQ of the
+    first causal query is 0 exactly, computed on both sides as fp32
+    residue), so its row bound is at least FP32_TOL at its largest
+    |plain| value."""
     e = expect.float()
     d = (out.float() - e).abs()
     if out.dtype == torch.bfloat16:
         row_max = e.abs().amax(dim=-1, keepdim=True)
         tol = BF16_ULPS * torch.exp2(torch.floor(torch.log2(row_max)) - 7)
+        if grad:
+            tol = torch.maximum(tol, FP32_TOL * e.abs().max())
     else:
         tol = torch.full_like(e, FP32_TOL)
     # A row whose plain values are all 0 has tol 0: its error must be 0.
@@ -373,8 +386,8 @@ def _within(c: dict) -> bool:
     return c["err_over_tol"] <= 1 and c["rel_l2_err"] <= c["rel_l2_tol"]
 
 
-def _check(name, out, expect, errors) -> dict:
-    c = _compare(out, expect)
+def _check(name, out, expect, errors, grad: bool = False) -> dict:
+    c = _compare(out, expect, grad)
     errors.append({"case": name, **c})
     if not _within(c):
         fail(f"kernel {name}: {c}")
@@ -389,11 +402,12 @@ def _drop_tile(valid: torch.Tensor) -> torch.Tensor:
     return wrong
 
 
-def _rejects(name, wrong, expect, errors, what="one tile dropped") -> dict:
+def _rejects(name, wrong, expect, errors, what="one tile dropped",
+             grad: bool = False) -> dict:
     """Show the check fails a wrong output: ``wrong`` is the plain version
     with ``what`` done to it. Returns by how many times each limit is
     passed."""
-    c = _compare(wrong, expect)
+    c = _compare(wrong, expect, grad)
     errors.append({"case": f"{name}: plain with {what} (must be rejected)",
                    **c})
     if _within(c):
@@ -578,6 +592,7 @@ def phase_kernels() -> list[dict]:
                       dtype="bfloat16"),
     })
     records.append(_flash_attention_record(gen, errors))
+    records.append(_flash_backward_record(gen, errors))
     records.append(_rglru_scan_record(gen, errors))
     records.append(_ssm_scan_record(gen, errors))
     emit({"phase": "kernels", "checks": errors})
@@ -701,6 +716,149 @@ def _flash_attention_record(gen, errors) -> dict:
             "launches": None, "launches_by_path": None, **main,
             "bound_rate": ("989 TFLOP/s bf16, 67 TFLOP/s fp32, 3.35 TB/s "
                            "(H100 SXM datasheet)"),
+            "other_shapes": shapes}
+
+
+def _by_kv_group(fn, q, k, v, *rest, lse=None):
+    """A plain version ``fn`` over q/k/v (and out, lse, dout) one KV
+    head's group at a time, joined on the head axis: Mellum2's [32, 8192,
+    8192] fp32 logits, and the backward's five tensors of that size,
+    would not fit at once."""
+    KV = k.shape[2]
+    G = q.shape[2] // KV
+    parts = []
+    for g in range(KV):
+        hq = slice(g * G, (g + 1) * G)
+        extra = [t[:, :, hq].contiguous() for t in rest]
+        if lse is not None:
+            extra.insert(1, lse[:, hq].contiguous())
+        parts.append(fn(q[:, :, hq].contiguous(),
+                        k[:, :, g:g + 1].contiguous(),
+                        v[:, :, g:g + 1].contiguous(), *extra))
+    return [torch.cat(xs, dim=1 if x.dim() == 3 else 2)
+            for xs, x in zip(zip(*parts), parts[0])]
+
+
+def _flash_backward_record(gen, errors) -> dict:
+    """The training route through the flash kernel at the two training
+    cells' attention shapes (bf16, causal): Qwen2-1.5B (4 x 1024 tokens a
+    microbatch, 12/2 heads, dh 128) and Mellum2's sliding (window 1024)
+    and full layers (1 x 8192, 32/4 heads). The forward's LSE instance
+    and the backward kernels against the plain versions (over the
+    kernels' own output and log-sum-exp; a key tile's dropped dK must be
+    rejected), then times: the LSE forward beside K3's inference
+    instance, the backward, the plain backward, and SDPA's backward as a
+    yardstick. Bounds: q.k and p.v over the visible pairs forward, five
+    products over them backward, at 989 TFLOP/s. The record's numbers
+    are Mellum2's full layer's."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    bf16 = torch.bfloat16
+    shapes = {}
+    for label, (B, S, H, KV, dh, window) in {
+            "qwen2-1.5b train": (4, 1024, 12, 2, 128, None),
+            "mellum2-12b-a2.5b sliding train": (1, 8192, 32, 4, 128, 1024),
+            "mellum2-12b-a2.5b full train": (1, 8192, 32, 4, 128, None),
+    }.items():
+        q, g = (torch.randn((B, S, H, dh), generator=gen,
+                            device="cuda").to(bf16) for _ in range(2))
+        k, v = (torch.randn((B, S, KV, dh), generator=gen,
+                            device="cuda").to(bf16) for _ in range(2))
+        name = (f"K3 bwd {label} B={B} S={S} H={H} KV={KV} dh={dh} "
+                f"window={window}")
+        out, lse = torch.ops.repro_torch.flash_attention_fwd(
+            q, k, v, True, window, None)
+        want_out, want_lse = _by_kv_group(
+            lambda *a: ref.flash_attention_lse(*a, True, window), q, k, v)
+        c_out = _check(f"{name} out", out, want_out, errors)
+        lse_err = (lse - want_lse).abs().max().item()
+        if lse_err > 1e-5 * max(1.0, want_lse.abs().max().item()):
+            fail(f"kernel {name}: log-sum-exp off by {lse_err}")
+
+        def bwd():
+            return torch.ops.repro_torch.flash_attention_bwd(
+                g, q, k, v, out, lse, True, window, None)
+        got = bwd()
+        want = _by_kv_group(
+            lambda q, k, v, o, lse, g: ref.flash_attention_bwd(
+                q, k, v, o, lse, g, True, window),
+            q, k, v, out, g, lse=lse)
+        checks = {n: _check(f"{name} {n}", a, w, errors, grad=True)
+                  for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        dropped = want[1].clone()
+        dropped[:, S // 2:S // 2 + 64] = 0
+        margin = _rejects(f"{name} dk", dropped, want[1], errors,
+                          "one key tile's dK dropped", grad=True)
+        repeat = bwd()
+        if not all(torch.equal(a, b) for a, b in zip(got, repeat)):
+            fail(f"kernel {name}: two backward calls differ")
+        del got, want, repeat, want_out, want_lse
+        pairs = fa.visible_pairs(S, S, True, window)
+        fwd_flops = 4 * B * H * pairs * dh
+        bwd_flops = 10 * B * H * pairs * dh
+        # SDPA's backward as a yardstick: the flash backend over K/V
+        # repeated to every head where the mask is causal, the
+        # memory-efficient one over the band mask otherwise.
+        qt, gt = q.transpose(1, 2), g.transpose(1, 2)
+        kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        if window is None:
+            backend, kw = SDPBackend.FLASH_ATTENTION, {"is_causal": True}
+            lib_call = ("SDPA flash backend (is_causal, K/V repeated to "
+                        "the query heads): backward only")
+        else:
+            ok = ref.visible(S, S, True, window, q.device)
+            backend, kw = SDPBackend.EFFICIENT_ATTENTION, {"attn_mask": ok}
+            lib_call = ("SDPA memory-efficient backend (band mask, K/V "
+                        "repeated to the query heads): backward only")
+        with sdpa_kernel(backend):
+            lib_out = F.scaled_dot_product_attention(*leaves, **kw)
+
+            def lib():
+                return torch.autograd.grad(lib_out, leaves, gt,
+                                           retain_graph=True)
+            library_ms = _time_ms(lib, iters=20)
+        del lib_out, leaves
+        shapes[label] = {
+            "out": c_out, **checks, "lse_max_abs_err": lse_err,
+            "dropped_tile_over_tol": margin, "repeat_bit_equal": True,
+            "splits": fa.bwd_splits(B, S, S, H, KV, True, window,
+                                    fa._sm_count(q.device)),
+            "ms": _time_ms(bwd),
+            "device_ms": _device_ms(bwd, every=True),
+            "forward_lse_ms": _time_ms(
+                lambda: torch.ops.repro_torch.flash_attention_fwd(
+                    q, k, v, True, window, None)),
+            "forward_inference_ms": _time_ms(
+                lambda: fa.flash_attention(q, k, v, True, window)),
+            "plain_ms": _time_ms(lambda: _by_kv_group(
+                lambda q, k, v, o, lse, g: ref.flash_attention_bwd(
+                    q, k, v, o, lse, g, True, window),
+                q, k, v, out, g, lse=lse), iters=3, warmup=1),
+            "plain_call": "ref.flash_attention_bwd one KV group at a time",
+            "bound_ms": bwd_flops / PEAK_FLOPS_PER_S[bf16] * 1e3,
+            "bound_by": "operations", "bound_flops": bwd_flops,
+            "forward_bound_ms": fwd_flops / PEAK_FLOPS_PER_S[bf16] * 1e3,
+            "visible_pairs_per_head": pairs,
+            "library_ms": library_ms, "library_call": lib_call,
+            "shape": dict(B=B, S=S, H=H, KV=KV, dh=dh, window=window,
+                          causal=True, dtype="bfloat16")}
+        del q, k, v, g, out, lse
+        _collect()
+    main = shapes.pop("mellum2-12b-a2.5b full train")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": None,
+            "why": ("no TPU kernel: the Pallas flash kernel has no "
+                    "backward (the JAX package trains through XLA's "
+                    "attention); added so that the learner trains "
+                    "through the flash kernel"),
+            "launches": None, "launches_by_path": None, **main,
+            "bound_rate": "989 TFLOP/s bf16 (H100 SXM datasheet)",
             "other_shapes": shapes}
 
 
@@ -932,7 +1090,8 @@ def _ssm_scan_record(gen, errors) -> dict:
 
 PARITY_TIE = 1e-3        # top-2 margin below which a step is a near-tie
 KERNEL_NAMES = ("decode_attention", "paged_decode_attention",
-                "flash_attention", "rglru_scan", "ssm_scan")
+                "flash_attention", "flash_attention_bwd", "rglru_scan",
+                "ssm_scan")
 
 
 def _counter_modules():
@@ -2382,7 +2541,8 @@ def _plan_train(mesh, device_line) -> None:
         sharded_loss = float(out[2]["loss"].full_tensor())
         del out
         _collect()
-        _, _, m = step(params, opt, batch)          # unsharded
+        with _dense_grad_attention():               # unsharded
+            _, _, m = step(params, opt, batch)
         plain_loss = float(m["loss"])
         del m, dp, do, db, params, opt, batch
         _collect()
@@ -2637,10 +2797,26 @@ def _mesh_collectives(device_line: str) -> None:
     _collect()
 
 
+@contextlib.contextmanager
+def _dense_grad_attention():
+    """Within the block, the gradient pass's attention takes the dense
+    path on plain tensors too: a learner's state on a mesh is DTensors,
+    whose attention runs dense, so a plain run compared with it to the
+    bit is held to the same route."""
+    from repro_torch.models import attention
+    eligible = attention._flash_grad_eligible
+    attention._flash_grad_eligible = lambda *a: False
+    try:
+        yield
+    finally:
+        attention._flash_grad_eligible = eligible
+
+
 def _mesh_learner(device_line: str) -> None:
     """d) one LM100M learner through ``launch.train.build_program``,
     without and with a 1x1 mesh: each step's loss must be equal to the
-    bit; each chief step timed to a synchronize."""
+    bit, the plain learner's attention held to the mesh's dense path;
+    each chief step timed to a synchronize."""
     from repro_torch import core as lp
     from repro_torch.launch import train as lt
     from repro_torch.train import fabric
@@ -2648,6 +2824,8 @@ def _mesh_learner(device_line: str) -> None:
     runs = {}
     step = fabric.LearnerWorker._chief_step
     for mesh_shape in (None, (1, 1)):
+        held = (_dense_grad_attention() if mesh_shape is None
+                else contextlib.nullcontext())
         rec = []
 
         def timed(self, ctx, rec=rec):
@@ -2667,7 +2845,8 @@ def _mesh_learner(device_line: str) -> None:
                 cfg, steps=MESH_LEARNER_STEPS, ckpt_dir=store,
                 learners=1, publish_every=MESH_LEARNER_STEPS,
                 with_eval=False, mesh_shape=mesh_shape, device="cuda")
-            lp.launch_and_wait(program, timeout_s=600)
+            with held:
+                lp.launch_and_wait(program, timeout_s=600)
         finally:
             fabric.LearnerWorker._chief_step = step
             shutil.rmtree(store, ignore_errors=True)

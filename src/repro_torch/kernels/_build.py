@@ -152,15 +152,17 @@ def require_device(what: str, t: torch.Tensor) -> None:
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels have no backward pass, as the JAX package's Pallas
-    kernels have none (its training runs XLA's attention and scans): an
-    output built by them would carry no gradient, so raise instead.
-    Training runs the plain route, ``impl="dense"``."""
+    """The inference entry points have no backward pass, as the JAX
+    package's Pallas kernels have none (its training runs XLA's attention
+    and scans): an output built by them would carry no gradient, so raise
+    instead. Training reaches attention through the differentiable
+    ``flash_attention.flash_attention_train`` (``impl="train"``) and the
+    scans through their plain route."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name} has no backward pass (nor has the JAX package's "
-            "kernel); train with impl=\"dense\", or call it under "
-            "torch.no_grad() or on inputs that need no gradient")
+            "kernel); train with impl=\"train\" or \"dense\", or call it "
+            "under torch.no_grad() or on inputs that need no gradient")
 
 
 def load() -> ctypes.CDLL:
@@ -240,6 +242,21 @@ def _bind(lib: ctypes.CDLL) -> None:
             I, I, F,                  # causal, window, sm_scale
             P]                        # stream
         fn.restype = I
+    lib.repro_flash_attention_bf16_lse.argtypes = [
+        I,                            # dh
+        P, P, P, P, P,                # q, k, v, out, lse
+        I, I, I, I, I,                # B, Sq, Sk, H, KV
+        I, I, F,                      # causal, window, sm_scale
+        P]                            # stream
+    lib.repro_flash_attention_bf16_lse.restype = I
+    lib.repro_flash_attention_bwd_bf16.argtypes = [
+        I,                            # dh
+        P, P, P, P, P, P,             # q, k, v, out, dout, lse
+        P, P, P, P, P,                # delta, dq, dk, dv, part scratch
+        I, I, I, I, I,                # B, Sq, Sk, H, KV
+        I, I, F, I,                   # causal, window, sm_scale, splits
+        P]                            # stream
+    lib.repro_flash_attention_bwd_bf16.restype = I
     lib.repro_rglru_scan.argtypes = [
         I,                            # dtype
         P, P, P, P, P,                # a, x, h0, y, h_last

@@ -60,7 +60,10 @@
 //     window to the last causal tile (the Pallas kernel's pl.when), and a
 //     warpgroup skips a tile none of its rows sees;
 //   * ragged Sq and Sk: loads past the end are zero-filled, keys past Sk
-//     masked, query rows past Sq computed and not stored.
+//     masked, query rows past Sq computed and not stored;
+//   * a template flag (LSE) also stores each row's log-sum-exp for the
+//     backward pass (flash_attention_bwd.cu); the inference entry point
+//     launches the instance without it.
 //
 // fp32 -- flash_kernel, fp32 FMAs from shared memory. fp32 is the parity
 // dtype (greedy tokens are held exact at fp32 compute), and TF32 tensor
@@ -81,6 +84,7 @@
 // and returns cudaGetLastError().
 
 #include "common.cuh"
+#include "flash_tile.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -335,13 +339,6 @@ struct Cfg {
   static constexpr size_t bytes = Q + 2 * STAGES * KV + 1024;  // + alignment
 };
 
-// 2^x on the special-function unit (one instruction; denormals flush).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The online-softmax update of one tile of scores s (a thread's 32 wgmma
 // accumulator entries, two rows of 16: entry i is row (i / 2) % 2) in
 // base 2: the rows' max m and sum l, alpha = 2^(m_old - m_new), and s
@@ -378,38 +375,16 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], uint32_t ok,
   for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + ps[j];
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-// cp.async the [R x DH] bf16 tile whose row r starts at g + r * stride
-// into swizzled slabs at shared address dst; rows >= n_rows and columns
-// >= DH are zero-filled.
-template <int R, int DH>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* g,
-                                          int64_t stride, int n_rows,
-                                          int tid) {
-  constexpr int CPR = Cfg<DH>::DP / 8;             // 16-byte chunks per row
-  constexpr int NT = Cfg<DH>::NT;
-  static_assert(R * CPR % NT == 0, "whole passes over the tile");
-#pragma unroll
-  for (int it = 0; it < R * CPR / NT; ++it) {
-    const int i = tid + it * NT, r = i / CPR, c = i % CPR;
-    const bool ok = r < n_rows && c * 8 < DH;
-    cp_async16(dst + swz_offset<R>(r, c * 8), ok ? g + r * stride + c * 8 : g,
-               ok ? 16 : 0);
-  }
-}
-
-template <int DH>
+// LSE: also write each row's log-sum-exp of its scaled scores, fp32
+// [B, H, Sq] (+inf for a row that sees no key), for the backward pass.
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(Cfg<DH>::NT, 1)
     flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
-                    int KV, int causal, int window, float scale_log2) {
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    int Sq, int Sk, int H, int KV, int causal, int window,
+                    float scale_log2) {
   using S = Cfg<DH>;
   constexpr int DP = S::DP, BQ = S::BQ;
   constexpr int NO = DP / 2;      // output accumulators per thread
@@ -445,10 +420,10 @@ __global__ void __launch_bounds__(Cfg<DH>::NT, 1)
   // the same stage of the second.
   const uint32_t sK = sQ + S::Q, sV = sK + STAGES * S::KV;
   auto load = [&](uint32_t ring, const __nv_bfloat16* g, int t) {
-    load_tile<BK, DH>(ring + (t % STAGES) * S::KV,
+    load_tile<BK, DH, S::NT>(ring + (t % STAGES) * S::KV,
                       g + (int64_t)t * BK * kv_row, kv_row, Sk - t * BK, tid);
   };
-  load_tile<BQ, DH>(sQ, qb, q_row, Sq - q0, tid);
+  load_tile<BQ, DH, S::NT>(sQ, qb, q_row, Sq - q0, tid);
   if (t_begin < t_end) {
     load(sK, kb, t_begin);
     if (S::NWG > 1) load(sV, vb, t_begin);
@@ -643,6 +618,10 @@ __global__ void __launch_bounds__(Cfg<DH>::NT, 1)
     l[j] += __shfl_xor_sync(FULL, l[j], 2);
     const int row = wq0 + r + 8 * j;
     if (row >= Sq) continue;
+    if (LSE && lane % 4 == 0)   // m and l are in base 2
+      lse[((int64_t)b * H + h) * Sq + row] =
+          l[j] > 0.f ? (m[j] + log2f(l[j])) * 0.6931471805599453f
+                     : __int_as_float(0x7f800000);
     const float den = fmaxf(l[j], 1e-30f);
     __nv_bfloat16* orow = out + ((int64_t)b * Sq + row) * q_row +
                           (int64_t)h * DH;
@@ -659,14 +638,16 @@ __global__ void __launch_bounds__(Cfg<DH>::NT, 1)
 }  // namespace tc
 
 // TC: the bf16 tensor-core kernel; else the fp32 FMA kernel.
+// TC: lse is null (inference) or receives the rows' log-sum-exp.
 template <bool TC, int DH>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         void* out, int B, int Sq, int Sk, int H, int KV,
-                         int causal, int window, float sm_scale,
+                         void* out, float* lse, int B, int Sq, int Sk, int H,
+                         int KV, int causal, int window, float sm_scale,
                          cudaStream_t stream) {
   if constexpr (TC) {
     using C = tc::Cfg<DH>;
-    auto kern = tc::flash_tc_kernel<DH>;
+    auto kern = lse ? tc::flash_tc_kernel<DH, true>
+                    : tc::flash_tc_kernel<DH, false>;
     const size_t smem = C::bytes;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -676,8 +657,8 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, causal, window,
-        sm_scale * 1.4426950408889634f);          // scores in base 2
+        static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, H, KV, causal,
+        window, sm_scale * 1.4426950408889634f);  // scores in base 2
   } else {
     auto kern = flash_kernel<float, DH>;
     const size_t smem = Smem<DH>::bytes;
@@ -697,15 +678,15 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 
 template <bool TC>
 cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
-                      void* out, int B, int Sq, int Sk, int H, int KV,
-                      int causal, int window, float sm_scale,
+                      void* out, float* lse, int B, int Sq, int Sk, int H,
+                      int KV, int causal, int window, float sm_scale,
                       cudaStream_t stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || window < 0)
     return cudaErrorInvalidValue;
 #define REPRO_DH_CASE(D)                                                  \
   case D:                                                                 \
-    return launch_typed<TC, D>(q, k, v, out, B, Sq, Sk, H, KV, causal,    \
-                               window, sm_scale, stream);
+    return launch_typed<TC, D>(q, k, v, out, lse, B, Sq, Sk, H, KV,       \
+                               causal, window, sm_scale, stream);
   switch (dh) {
     REPRO_DH_CASE(16)
     REPRO_DH_CASE(32)
@@ -730,8 +711,8 @@ int repro_flash_attention_f32(int dh, const void* q, const void* k,
                               const void* v, void* out, int B, int Sq, int Sk,
                               int H, int KV, int causal, int window,
                               float sm_scale, void* stream) {
-  return (int)launch_dh<false>(dh, q, k, v, out, B, Sq, Sk, H, KV, causal,
-                               window, sm_scale,
+  return (int)launch_dh<false>(dh, q, k, v, out, nullptr, B, Sq, Sk, H, KV,
+                               causal, window, sm_scale,
                                static_cast<cudaStream_t>(stream));
 }
 
@@ -739,8 +720,20 @@ int repro_flash_attention_bf16(int dh, const void* q, const void* k,
                                const void* v, void* out, int B, int Sq,
                                int Sk, int H, int KV, int causal, int window,
                                float sm_scale, void* stream) {
-  return (int)launch_dh<true>(dh, q, k, v, out, B, Sq, Sk, H, KV, causal,
-                              window, sm_scale,
+  return (int)launch_dh<true>(dh, q, k, v, out, nullptr, B, Sq, Sk, H, KV,
+                              causal, window, sm_scale,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 kernel as above, which also writes lse [B,H,Sq] fp32: each
+// row's log-sum-exp of its scaled visible scores (+inf where none).
+int repro_flash_attention_bf16_lse(int dh, const void* q, const void* k,
+                                   const void* v, void* out, void* lse, int B,
+                                   int Sq, int Sk, int H, int KV, int causal,
+                                   int window, float sm_scale, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_dh<true>(dh, q, k, v, out, static_cast<float*>(lse), B,
+                              Sq, Sk, H, KV, causal, window, sm_scale,
                               static_cast<cudaStream_t>(stream));
 }
 

@@ -98,6 +98,11 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ok: torch.Tensor,
                      sm_scale: Optional[float] = None) -> torch.Tensor:
     """``flash_attention`` over an explicit [Sq, Sk] bool mask ``ok``."""
+    return _masked_attention(q, k, v, ok, sm_scale)[0]
+
+
+def _masked_attention(q, k, v, ok, sm_scale):
+    """(``masked_attention``'s output, its fp32 masked logits)."""
     H, dh = q.shape[2], q.shape[3]
     KV = k.shape[2]
     sm_scale = sm_scale if sm_scale is not None else dh ** -0.5
@@ -108,7 +113,58 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = logits.masked_fill(~ok, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqs,bshd->bqhd", w, v.float())
-    return out.to(q.dtype)
+    return out.to(q.dtype), logits
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        sm_scale: Optional[float] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward's contract: ``flash_attention``'s output and
+    each row's log-sum-exp of its scaled visible logits, lse [B,H,Sq]
+    fp32, which the backward pass reads."""
+    ok = visible(q.shape[1], k.shape[1], causal, window, q.device)
+    out, logits = _masked_attention(q, k, v, ok, sm_scale)
+    return out, torch.logsumexp(logits, dim=-1)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = True,
+                        window: Optional[int] = None,
+                        sm_scale: Optional[float] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' contract: (dq, dk, dv) of ``flash_attention``
+    in the inputs' dtypes, from the forward's ``out`` and ``lse``:
+
+        P = exp(scale q.k - lse), 0 where a key is not visible
+        delta = rowsum(dout * out)
+        dv = P^T dout,  dS = P (dout.v - delta)
+        dq = scale dS k,  dk = scale dS^T q
+
+    dk and dv summed over each KV head's query heads. Everything is fp32;
+    P and dS are rounded to q's dtype where they enter a product, as the
+    kernels round them (no rounding for float32 inputs)."""
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    sm_scale = sm_scale if sm_scale is not None else dh ** -0.5
+    ok = visible(Sq, Sk, causal, window, q.device)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    if G > 1:
+        kf, vf = kf.repeat_interleave(G, dim=2), vf.repeat_interleave(G, dim=2)
+    gf = dout.float()
+    s = torch.einsum("bqhd,bshd->bhqs", qf, kf) * sm_scale
+    p = torch.exp(s - lse[..., None]).masked_fill(~ok, 0.0)
+    delta = (gf * out.float()).sum(-1).transpose(1, 2)          # [B,H,Sq]
+    dp = torch.einsum("bqhd,bshd->bhqs", gf, vf)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dv = torch.einsum("bhqs,bqhd->bshd", p.to(q.dtype).float(), gf)
+    dq = torch.einsum("bhqs,bshd->bqhd", ds, kf) * sm_scale
+    dk = torch.einsum("bhqs,bqhd->bshd", ds, qf) * sm_scale
+    dk = dk.reshape(B, Sk, KV, G, dh).sum(3)
+    dv = dv.reshape(B, Sk, KV, G, dh).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rglru_scan(a: torch.Tensor, x: torch.Tensor,

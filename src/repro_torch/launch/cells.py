@@ -10,8 +10,9 @@ FLOPs, bytes, collectives and peak memory.
 
 The step takes the card's route: attention through the flash kernels'
 custom ops (prefill; decode where the cache is not split over TP), the
-RG-LRU and selective scans through theirs, training on the dense route
-(the kernels have no backward pass).
+RG-LRU and selective scans through theirs, training on its own route
+(``impl="train"``: the flash backward takes no DTensor, so a sharded
+step's attention runs dense).
 """
 
 from __future__ import annotations

@@ -14,8 +14,9 @@ Topology (the paper's patterns composed, surviving worker churn):
          eval loss — never an ad-hoc RPC params snapshot)
 
 The port of ``repro.launch.train``: every node runs on ``device`` (the
-CUDA card unless ``--device cpu``). The learners train through the dense
-attention (the kernels have no backward pass); the evaluator scores
+CUDA card unless ``--device cpu``). The learners train through the flash
+kernel and its backward on a card (``impl="train"``; dense on the CPU
+or on a mesh); the evaluator scores
 published versions under ``torch.no_grad()`` with ``impl="auto"``,
 which on the card is the prefill flash-attention kernel (K3). Versions
 are published in the JAX package's layout, so either package's learners

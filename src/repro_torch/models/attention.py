@@ -15,6 +15,14 @@ flash on a CUDA device — the counterpart of
 "flash on TPU" in the JAX package. Softcapped configs always take the
 dense path (the kernels have no softcap).
 
+``"train"`` is the gradient pass's route (``train_step.make_loss_fn``):
+full-sequence self- and cross-attention take the differentiable flash
+entry (``flash_attention.flash_attention_train``) where the input allows
+it (``_flash_grad_eligible``: a plain CUDA tensor, not a DTensor, in
+bf16, no softcap, a head dim the backward kernels take), else the dense
+path; the scans take their plain route. Each such call bumps the
+process counter ``train.attn.flash`` or ``train.attn.dense``.
+
 Cache updates are written in place (one slot per row with an indexed
 store) where the JAX package returns a new array; the numbers are
 identical, and the functions still return the cache for symmetry.
@@ -35,6 +43,7 @@ from typing import Optional
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.core import telemetry
 from repro_torch.kernels import _shards
 from repro_torch.kernels import decode_attention as flash_decode
 from repro_torch.kernels import flash_attention as flash_prefill
@@ -212,15 +221,46 @@ def _sdpa_local(cfg: ModelConfig, q, k, v, bias) -> torch.Tensor:
     return torch.einsum("bhqs,bshd->bqhd", w, v)
 
 
-def _flash_prefill(q, k, v, causal: bool,
+def _flash_prefill(kernel, q, k, v, causal: bool,
                    window: Optional[int] = None) -> torch.Tensor:
-    """The prefill kernel over the heads as ``_heads_over_tp`` lays them
-    out (KV heads kept grouped where they split over TP)."""
+    """The prefill kernel's entry ``kernel`` (``_prefill_kernel``'s) over
+    the heads as ``_heads_over_tp`` lays them out (KV heads kept grouped
+    where they split over TP)."""
     q, k, v, H = _heads_over_tp(q, k, v, keep_groups=True)
-    out = flash_prefill.flash_attention(q.contiguous(), k.contiguous(),
-                                        v.contiguous(), causal=causal,
-                                        window=window)
+    out = kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                 causal=causal, window=window)
     return out[:, :, :H]
+
+
+def _on_card(q: torch.Tensor) -> bool:
+    return q.device.type == "cuda"
+
+
+def _flash_grad_eligible(cfg: ModelConfig, q: torch.Tensor) -> bool:
+    """Whether the gradient pass's attention over ``q`` can take the
+    differentiable flash entry: a plain tensor on a card (a DTensor keeps
+    the dense path), bf16, no softcap, a head dim the backward takes."""
+    return (type(q) is torch.Tensor and _on_card(q)
+            and q.dtype == torch.bfloat16 and _flash_eligible(cfg)
+            and q.shape[3] in flash_prefill.BWD_HEAD_DIMS)
+
+
+def _prefill_kernel(impl: str, cfg: ModelConfig, x: torch.Tensor,
+                    q: torch.Tensor):
+    """The flash entry a full-sequence attention call takes: the
+    inference ``flash_attention``, the differentiable
+    ``flash_attention_train`` (``impl="train"``, where the input allows
+    it), or None for the dense path. A "train" call bumps the counter of
+    the route it takes (``train.attn.flash`` / ``train.attn.dense``)."""
+    impl = _resolve_impl(impl, x)
+    if impl == "train":
+        flash = _flash_grad_eligible(cfg, q)
+        telemetry.metrics().counter(
+            "train.attn.flash" if flash else "train.attn.dense").inc()
+        return flash_prefill.flash_attention_train if flash else None
+    if impl == "flash" and _flash_eligible(cfg):
+        return flash_prefill.flash_attention
+    return None
 
 
 def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -239,8 +279,9 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q, k, v = _project_qkv(cfg, p, x, x)
     q, k = _rope(cfg, kind, positions, q, k)
     B, S = x.shape[:2]
-    if _resolve_impl(impl, x) == "flash" and _flash_eligible(cfg):
-        out = _flash_prefill(q, k, v, causal=causal, window=window)
+    kernel = _prefill_kernel(impl, cfg, x, q)
+    if kernel is not None:
+        out = _flash_prefill(kernel, q, k, v, causal=causal, window=window)
     elif S <= 2 * Q_CHUNK:
         bias = _mask_bias(cfg, positions, positions, causal, window)[:, None]
         out = _sdpa(cfg, q, k, v, bias)
@@ -278,8 +319,9 @@ def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     which the decode state keeps."""
     q, k, v = _project_qkv(cfg, p, x, memory)
     B, Sq = x.shape[:2]
-    if _resolve_impl(impl, x) == "flash" and _flash_eligible(cfg):
-        out = _flash_prefill(q, k, v, causal=False)
+    kernel = _prefill_kernel(impl, cfg, x, q)
+    if kernel is not None:
+        out = _flash_prefill(kernel, q, k, v, causal=False)
     else:
         out = _sdpa(cfg, q, k, v, torch.zeros((), dtype=torch.float32,
                                               device=x.device))
@@ -391,8 +433,9 @@ def _positions(t, B: int, device) -> torch.Tensor:
 
 
 def _resolve_impl(impl: str, x: torch.Tensor) -> str:
-    if impl not in ("auto", "dense", "flash"):
-        raise ValueError(f"impl must be auto|dense|flash, got {impl!r}")
+    if impl not in ("auto", "dense", "flash", "train"):
+        raise ValueError(f"impl must be auto|dense|flash|train, got "
+                         f"{impl!r}")
     if impl == "auto":
         return "flash" if x.device.type == "cuda" else "dense"
     return impl

@@ -225,7 +225,8 @@ def forward(cfg: ModelConfig, params: dict, *,
     ``embeddings`` [B,S,D] (audio), with frontend ``memory`` [B,T,D] for
     cross-attention blocks. Returns (hidden [B,S,D], aux_loss: the sum of
     the MoE layers' load-balance losses, fp32, 0 without experts).
-    ``impl`` picks the attention and scan route (see ``prefill``).
+    ``impl`` picks the attention and scan route (see ``prefill``;
+    ``"train"``, the gradient pass's, is ``models.attention``'s).
 
     ``remat=True`` recomputes each block in the backward pass instead of
     keeping its activations (``torch.utils.checkpoint``; the JAX
@@ -373,8 +374,10 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     the sequence, optionally under ``mask``), or HuBERT's frame
     ``embeddings`` with per-frame ``targets`` at ``mask``; plus
     ``image_embeds`` for cross-attention stacks. The MoE aux loss is
-    added. ``impl`` reaches ``forward``: training passes "dense", since
-    the kernels have no backward pass. ``resid_tp`` reaches ``forward``.
+    added. ``impl`` reaches ``forward``: training passes "train", the
+    route with a backward pass (the flash attention's kernels where they
+    take the input, else dense; the scans' plain route), since the
+    inference kernels have none. ``resid_tp`` reaches ``forward``.
     A stack of dropless expert layers also reports ``moe_rows``, the rows
     each held expert of each layer computed (``forward``'s ``stats``)."""
     stats: dict = {}

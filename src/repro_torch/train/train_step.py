@@ -7,10 +7,14 @@ run one after another in a Python loop, accumulating fp32 gradients, so
 arbitrary global batches fit; the remat policy trades activation memory
 for a second forward pass.
 
-The loss runs the dense attention and plain scans (``impl="dense"``),
-as the JAX loss runs XLA's attention and associative scans: the CUDA
-kernels have no backward pass, because the JAX package's kernels have
-none. Master weights are ``cfg.param_dtype`` (fp32) and compute is
+The loss runs attention on the gradient pass's route
+(``impl="train"``): on a card, bf16 self- and cross-attention go through
+the flash kernel and its backward kernels (the JAX package's Pallas
+kernel has no backward, and its loss runs XLA's attention, whose logits
+are the same bf16 products in fp32); anything else the flash backward
+does not take (a DTensor, fp32, a softcap, another head dim, the CPU)
+runs the dense attention. The scans take their plain route, as the JAX
+loss runs associative scans. Master weights are ``cfg.param_dtype`` (fp32) and compute is
 ``cfg.compute_dtype``: the layers cast each weight as they read it, and
 the gradient comes back through that cast in fp32.
 
@@ -111,7 +115,7 @@ def make_loss_fn(model_cfg: ModelConfig, remat: str, resid_tp: bool = False):
 
     def loss_fn(params, micro_batch):
         return transformer.loss_fn(model_cfg, params, micro_batch,
-                                   remat=use_remat, impl="dense",
+                                   remat=use_remat, impl="train",
                                    resid_tp=resid_tp)
     return loss_fn
 

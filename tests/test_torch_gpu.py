@@ -192,6 +192,123 @@ def test_cuda_flash_wrapper_takes_dh80_and_refuses_dh96(cuda):
         fa.flash_attention(q, q, q, causal=False)
 
 
+def _assert_grad_matches_plain(out, expect):
+    """``_assert_matches_plain`` for a bf16 gradient, whose rows may be a
+    cancellation: dQ of the first causal query is 0 exactly (P = 1 and
+    dS = dout.v - delta = 0), and both sides compute it as a residue of
+    fp32 rounding in dout.v - delta. Each row's bound is then the larger
+    of 2 bf16 ulps at its largest |plain| value and the fp32 bound of the
+    forward's tests (2e-5) at the gradient's largest |plain| value."""
+    e = expect.float()
+    row_max = e.abs().amax(dim=-1, keepdim=True)
+    atol = torch.maximum(2 * torch.exp2(torch.floor(torch.log2(row_max)) - 7),
+                         2e-5 * e.abs().max())
+    err = (out.float() - e).abs()
+    assert bool((err <= atol).all()), float((err - atol).max())
+    err = (out.float() - e).norm().item()
+    assert err <= REL_L2_TOL[out.dtype] * e.norm().item()
+
+
+def _by_group(fn, q, k, v, *rest, lse=None):
+    """``fn`` (a plain version over q/k/v and, for the backward, out,
+    lse and dout) one KV head's group at a time, its outputs joined on
+    the head axis: the [H, Sq, Sk] fp32 logits of Mellum2's 32 heads at
+    8192 tokens would take tens of GB at once."""
+    KV = k.shape[2]
+    G = q.shape[2] // KV
+    parts = []
+    for g in range(KV):
+        hq = slice(g * G, (g + 1) * G)
+        extra = [t[:, :, hq].contiguous() for t in rest]
+        if lse is not None:
+            extra.insert(1, lse[:, hq].contiguous())
+        parts.append(fn(q[:, :, hq].contiguous(),
+                        k[:, :, g:g + 1].contiguous(),
+                        v[:, :, g:g + 1].contiguous(), *extra))
+    return [torch.cat(xs, dim=1 if x.dim() == 3 else 2)
+            for xs, x in zip(zip(*parts), parts[0])]
+
+
+BWD_CASES = [
+    # B, Sq, Sk, H, KV, dh, causal, window
+    (2, 200, 200, 4, 2, 16, True, None),      # ragged S, groups of 2
+    (1, 70, 333, 8, 1, 64, True, 100),        # right-aligned, windowed, 8
+    (2, 65, 129, 4, 4, 128, False, None),     # encoder, groups of 1
+    (1, 300, 1000, 4, 2, 80, True, 130),      # dh 80, windowed, Sq < Sk
+    (2, 128, 160, 8, 2, 32, False, None),     # cross-attention, Sq < Sk
+    (4, 1024, 1024, 12, 2, 128, True, None),  # Qwen2-1.5B's cell
+    (1, 8192, 8192, 32, 4, 128, True, 1024),  # Mellum2's sliding layers
+    (1, 8192, 8192, 32, 4, 128, True, None),  # and its full ones
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_cuda_flash_attention_bwd_matches_plain(cuda, case):
+    """The differentiable entry on the card: its forward's output and
+    log-sum-exp, and the gradient its backward kernels give, against the
+    plain versions over the kernels' own output and log-sum-exp, within
+    the bf16 bound of the forward's tests (the gradient's floored as
+    ``_assert_grad_matches_plain`` says; the log-sum-exp, fp32, within
+    1e-5). The two cells' shapes included: Qwen2's spreads each group's
+    heads over six blocks, Mellum2's full layers over two."""
+    B, Sq, Sk, H, KV, dh, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq + dh)
+    q, g = (_randn(gen, (B, Sq, H, dh), torch.bfloat16, cuda)
+            for _ in range(2))
+    k, v = (_randn(gen, (B, Sk, KV, dh), torch.bfloat16, cuda)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_train(*leaves, causal=causal, window=window)
+    before = dict(fa.launches)
+    out.backward(g)
+    assert fa.launches["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    _, lse = torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal,
+                                                       window, None)
+    want_out, want_lse = _by_group(
+        lambda *a: ref.flash_attention_lse(*a, causal, window), q, k, v)
+    _assert_matches_plain(out.detach(), want_out)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    want = _by_group(
+        lambda q, k, v, o, lse, g: ref.flash_attention_bwd(
+            q, k, v, o, lse, g, causal, window),
+        q, k, v, out.detach(), g, lse=lse)
+    for leaf, w in zip(leaves, want):
+        _assert_grad_matches_plain(leaf.grad, w)
+    # The last key tile's gradient (keys every case's last query sees)
+    # dropped is rejected.
+    wrong = want[1].clone()
+    wrong[:, Sk - 64:] = 0
+    with pytest.raises(AssertionError):
+        _assert_grad_matches_plain(wrong, want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,splits", [(BWD_CASES[5], 6),
+                                         (BWD_CASES[6], 1),
+                                         (BWD_CASES[7], 2)])
+def test_cuda_flash_attention_bwd_repeats_bit_identical(cuda, case, splits):
+    """Two backward calls on the same inputs give the same dQ, dK and dV
+    to the bit at the cells' shapes, with a group's heads spread over
+    blocks (the partial sums added in a fixed order) and without: no
+    float atomics."""
+    B, Sq, Sk, H, KV, dh, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, g = (_randn(gen, (B, Sq, H, dh), torch.bfloat16, cuda)
+            for _ in range(2))
+    k, v = (_randn(gen, (B, Sk, KV, dh), torch.bfloat16, cuda)
+            for _ in range(2))
+    out, lse = torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal,
+                                                         window, None)
+    runs = [torch.ops.repro_torch.flash_attention_bwd(
+        g, q, k, v, out, lse, causal, window, None) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert fa.bwd_splits(B, Sq, Sk, H, KV, causal, window,
+                         fa._sm_count(q.device)) == splits
+
+
 @pytest.mark.gpu
 def test_cuda_decode_attention_repeats_bit_identical(cuda):
     """Calls in a row give the same bits: the split kernel's counters go
@@ -564,7 +681,12 @@ def test_cuda_plan_estimate_matches_the_card(cuda):
         peak = torch.cuda.max_memory_allocated()
         sharded = float(out[2]["loss"].full_tensor())
         del out
-        plain = float(step(params, opt, batch)[2]["loss"])
+        # The DTensor step's attention runs dense; the plain step is held
+        # to the same route, so that only the sharding differs.
+        from repro_torch.models import attention
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(attention, "_flash_grad_eligible", lambda *a: False)
+            plain = float(step(params, opt, batch)[2]["loss"])
         assert sharded == plain
         assert rec.cost.flops == pytest.approx(est.cost.flops, rel=1e-2)
         assert 0.5 <= est.peak_bytes / peak <= 2.0
@@ -721,7 +843,10 @@ def test_cuda_grad_pass_replays_every_family(cuda, arch):
     grad_fn = Replayed(make_grad_fn(cfg, tc), tc.num_microbatches)
     counters = {k: telemetry.metrics().counter(f"train.graph.{k}")
                 for k in ("captures", "replays", "eager")}
+    attn = {k: telemetry.metrics().counter(f"train.attn.{k}")
+            for k in ("flash", "dense")}
     before = {k: c.value for k, c in counters.items()}
+    attn_before = {k: c.value for k, c in attn.items()}
     for step in range(3):
         b = _train_batch(cfg, rng, cuda)
         loss, _, grads = grad_fn(params, b)
@@ -735,6 +860,19 @@ def test_cuda_grad_pass_replays_every_family(cuda, arch):
         opt_lib.apply_updates_(tc.optimizer, ref, want_grads, ref_opt)
     assert {k: c.value - before[k] for k, c in counters.items()} == {
         "captures": 1, "replays": 2, "eager": 1}
+    # Attention blocks of an eligible config (bf16, no softcap, a head dim
+    # the backward takes) trained through the flash kernels, in the
+    # learner's eager passes, the capture and the fresh eager passes.
+    from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
+    from repro_torch.models.config import MAMBA, RGLRU
+    has_attn = any(kind not in (RGLRU, MAMBA)
+                   for kind in cfg.pattern + cfg.remainder)
+    eligible = (has_attn and cfg.compute_dtype == "bfloat16"
+                and not cfg.logit_softcap
+                and cfg.head_dim in BWD_HEAD_DIMS)
+    flash = attn["flash"].value - attn_before["flash"]
+    dense = attn["dense"].value - attn_before["dense"]
+    assert (flash > 0, dense > 0) == (eligible, has_attn and not eligible)
 
 
 @pytest.mark.gpu

@@ -251,17 +251,24 @@ def test_split_plan_covers_cache_in_whole_tiles(L, rows, group, kv_bytes,
 
 def test_flash_attention_routes_by_dtype():
     """bf16 goes to the tensor-core entry, float32 to the FMA entry: the
-    wrapper's table, and in the C source each entry point's launcher."""
+    wrapper's table, and in the C source each entry point's launcher.
+    The inference entries pass no log-sum-exp, so bf16 inference runs
+    the tensor-core kernel's instance without it; the training forward's
+    entry passes one."""
     assert fa.ENTRY == {torch.bfloat16: "repro_flash_attention_bf16",
                         torch.float32: "repro_flash_attention_f32"}
     src = (Path(fa.__file__).parent / "csrc" /
            "flash_attention.cu").read_text()
-    for name, tc in (("repro_flash_attention_bf16", "true"),
-                     ("repro_flash_attention_f32", "false")):
+    for name, tc, lse in (("repro_flash_attention_bf16", "true", "nullptr"),
+                          ("repro_flash_attention_f32", "false", "nullptr"),
+                          ("repro_flash_attention_bf16_lse", "true",
+                           "static_cast<float*>(lse)")):
         body = src[src.index(f"int {name}("):]
         body = body[:body.index("\n}\n")]
-        assert f"launch_dh<{tc}>" in body
-    assert "tc::flash_tc_kernel<DH>" in src.split("if constexpr (TC)")[1]
+        assert f"launch_dh<{tc}>(dh, q, k, v, out, {lse}," in body
+    tc = src.split("if constexpr (TC)")[1].split("} else {")[0]
+    assert "lse ? tc::flash_tc_kernel<DH, true>" in tc
+    assert ": tc::flash_tc_kernel<DH, false>" in tc
 
 
 def _flash_np(B, Sq, Sk, H, KV, dh, seed=0):

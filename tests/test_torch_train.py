@@ -449,8 +449,9 @@ def test_train_state_roundtrips_jax_port_jax_bit_for_bit(arch):
 
 
 def test_auto_impl_under_autograd_on_a_cuda_route_raises(monkeypatch):
-    """Training runs dense; ``impl="auto"`` reaching a kernel under
-    autograd raises instead of training through a path nobody chose.
+    """Training runs its own route (``impl="train"``: dense on the CPU);
+    ``impl="auto"`` reaching an inference kernel under autograd raises
+    instead of training through a path nobody chose.
     The CUDA route is simulated by resolving "auto" to the kernels, as on
     a card (their wrappers take a CPU tensor to the plain version)."""
     resolve = attention._resolve_impl
