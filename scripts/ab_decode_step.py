@@ -1,7 +1,7 @@
 """One bf16 decode step of full-width Mixtral-8x7B cut to 16 layers (B 3
-rows over a 160-slot ring, ``chip_smoke.py`` phase 7's served shape) on
-the card, timed on the host clock to a synchronize: the median of 10
-steps after 3 warm-up steps.
+rows over a 160-slot ring, where ``scripts/torch_time_kernels.py``
+times K1 as Mixtral's) on the card, timed on the host clock to a
+synchronize: the median of 10 steps after 3 warm-up steps.
 
 It uses only entry points that earlier trees of the port have too, so
 two trees can be compared in one call on one card, in the order parent,

@@ -1,22 +1,25 @@
 """Time the flash-decode kernels at the four decode shapes of PERF.md over
 a range of split lengths, beside the one ``split_plan`` picks:
 
-    PYTHONPATH=src python -m repro_torch.kernels.tune_decode
+    python3 scripts/torch_tune_decode.py
 
 Needs a CUDA card. Prints one JSON line per shape: the card, the length
-``split_plan`` picks, and for each split length (in tiles) the median of
-50 CUDA-event timings, each launch after a 64 MB L2 flush. The split
-plan's constants (``decode_attention._WARPS_PER_SM`` and the rest) are
-read off these lines.
+``split_plan`` picks, and for each split length (in tiles) its time
+(``torch_time_kernels.time_ms``: the median of 50 CUDA-event timings,
+each launch after a 64 MB L2 flush). The split plan's constants
+(``decode_attention._WARPS_PER_SM`` and the rest) are read off these
+lines.
 """
 
 from __future__ import annotations
 
 import json
 import math
-import subprocess
 
 import torch
+
+# First: it puts the checkout's src/ on sys.path.
+from torch_time_kernels import nvidia_smi, time_ms
 
 from repro_torch.kernels import decode_attention as dec
 
@@ -31,23 +34,6 @@ SHAPES = {
 }
 L, PS = 2048, 16
 SPLIT_TILES = (1, 2, 3, 4, 6, 8, 16, 64)
-
-
-def _time_ms(fn, iters: int = 50) -> float:
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda._sleep(50_000_000)
-    for s, e in ev:
-        flush.zero_()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return sorted(s.elapsed_time(e) for s, e in ev)[iters // 2]
 
 
 def _inputs(gen, B, H, KV, dh, lengths, paged):
@@ -69,10 +55,7 @@ def _inputs(gen, B, H, KV, dh, lengths, paged):
 
 
 def main() -> None:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = nvidia_smi("name,power.limit")
     sms = dec._num_sms(torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     plan = dec.split_plan
@@ -85,13 +68,13 @@ def main() -> None:
             dec.split_plan = (lambda *_, s=split_len:
                               (s, math.ceil(L / s)))
             try:
-                times[tiles] = _time_ms(call)
+                times[tiles] = time_ms(call)
             finally:
                 dec.split_plan = plan
         print(json.dumps({"shape": label, "device": smi,
                           "split_plan_tiles": picked[0] // dec.TILE,
                           "n_splits": picked[1],
-                          "split_plan_ms": _time_ms(call),
+                          "split_plan_ms": time_ms(call),
                           "ms_by_split_tiles": times}), flush=True)
 
 

@@ -2,11 +2,11 @@
 the prefill shapes of PERF.md, and copies of their sources with one
 constant changed:
 
-    PYTHONPATH=src python -m repro_torch.kernels.tune_scan
+    python3 scripts/torch_tune_scan.py
 
 Needs a CUDA card and the CUDA toolkit. Prints JSON lines, each with the
-card; every time is the median of 50 CUDA-event timings, each launch
-after a 64 MB L2 flush (as ``tune_decode`` does):
+card; every time is ``torch_time_kernels.time_ms``'s (the median of 50
+CUDA-event timings, each launch after a 64 MB L2 flush):
 
 - "rglru": K4's time and launch at fp32 and bf16 a/x.
 - "scaling": K5 at Di 4096, 8192 and 16384 (time in proportion to the
@@ -37,10 +37,12 @@ from pathlib import Path
 
 import torch
 
+# First: it puts the checkout's src/ on sys.path.
+from torch_time_kernels import nvidia_smi, time_ms
+
 from repro_torch.kernels import _build, scan_inputs
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import ssm_scan as ss
-from repro_torch.kernels.tune_decode import _time_ms
 
 # label: B, S, Di, N, u dtype (Falcon-Mamba-7B's prefill, then N 8 and 4)
 SSM_SHAPES = {
@@ -173,14 +175,8 @@ def _sass(lib_path: Path, launch: dict, sms: int, clock_hz: float) -> dict:
 
 
 def main() -> None:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    clock = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]) * 1e6
+    smi = nvidia_smi("name,power.limit")
+    clock = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -192,12 +188,12 @@ def main() -> None:
     for label, (B, S, W, dtype) in RGLRU_SHAPES.items():
         args = rg_args[label]
         emit("rglru", shape=label,
-             ms=_time_ms(lambda: rg.rglru_scan(*args)),
+             ms=time_ms(lambda: rg.rglru_scan(*args)),
              launch=rg.launch_config(dtype, B, W))
     rows = {}
     for Di in (4096, 8192, 16384):
         args = scan_inputs.ssm(gen, 1, 2048, Di, 16, torch.bfloat16, "cuda")
-        rows[Di] = _time_ms(lambda: ss.ssm_scan(*args))
+        rows[Di] = time_ms(lambda: ss.ssm_scan(*args))
     emit("scaling", shape="K5 B=1 S=2048 N=16 bf16 u", ms_by_di=rows)
 
     ssm_args = {label: scan_inputs.ssm(gen, B, S, Di, N, dt, "cuda")
@@ -222,11 +218,11 @@ def main() -> None:
         out = {}
         for label, call in calls.items():
             want = call()
-            repo_ms = [_time_ms(call)]
+            repo_ms = [time_ms(call)]
             with _build.library(lib):
                 got = call()
-                variant_ms = _time_ms(call)
-            repo_ms.append(_time_ms(call))
+                variant_ms = time_ms(call)
+            repo_ms.append(time_ms(call))
             out[label] = {"repo_ms": repo_ms, "variant_ms": variant_ms,
                           "same_bits": all(torch.equal(g, w)
                                            for g, w in zip(got, want))}

@@ -189,8 +189,8 @@ def load() -> ctypes.CDLL:
 def library(lib: ctypes.CDLL):
     """Within the block, every wrapper launches from ``lib`` (a build of
     changed sources whose entry points are bound with ``bind_like``), not
-    from the repository's library: how ``tune_scan`` times a variant
-    through the wrappers."""
+    from the repository's library: how ``scripts/torch_tune_scan.py``
+    times a variant through the wrappers."""
     global _lib
     base = load()
     with _lock:

@@ -18,7 +18,7 @@
 // shape (B=1, S=2048, Di=8192, N=16, bf16 u) on an H100 SXM the bytes
 // (~136 MB, ~0.041 ms at the datasheet's 3.35 TB/s) weigh less than the
 // 268 M exponentials: each is one MUFU.EX2, 16 a clock per SM on sm_90,
-// ~0.064 ms over 132 SMs at the 1980 MHz max SM clock. chip_smoke.py
+// ~0.064 ms over 132 SMs at the 1980 MHz max SM clock. torch_time_kernels.py
 // computes both for the run's card and clock. In practice the issue rate
 // binds first: an accurate expf is ~8 instructions around its MUFU.EX2,
 // and a step adds four rounded multiplies and an add per element, so

@@ -39,7 +39,7 @@ launches = {"decode_attention": 0, "paged_decode_attention": 0}
 TILE = 32                      # cache slots per tile (TILE in the .cu)
 HEAD_DIMS = (16, 32, 64, 128, 256)
 # The split plan's constants, picked from timings at the four decode
-# shapes of PERF.md (``python -m repro_torch.kernels.tune_decode``):
+# shapes of PERF.md (``scripts/torch_tune_decode.py``):
 _WARPS_PER_SM = 16     # resident warps the splits aim for on each SM
 _MIN_TILES = 2         # tiles a split holds at least
 _PARTIAL_SHARE = 4     # a split's K/V bytes >= this x its partials' bytes

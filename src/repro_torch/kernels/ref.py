@@ -3,9 +3,9 @@
 Each function mirrors its kernel's exact semantics (masking, all-invalid
 rows, accumulation dtypes) with straightforward tensor code, as
 ``repro.kernels.ref`` does for the Pallas kernels. The CPU tests hold the
-port to the JAX package through these, ``chip_smoke.py`` holds the CUDA
-kernels to them on the card, and a kernel wrapper runs them for a tensor
-that lies on the CPU.
+port to the JAX package through these, ``tests/test_torch_gpu.py`` holds
+the CUDA kernels to them on the card, and a kernel wrapper runs them for
+a tensor that lies on the CPU.
 """
 
 from __future__ import annotations

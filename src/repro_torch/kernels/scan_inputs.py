@@ -1,6 +1,7 @@
 """Seeded inputs for the two scan kernels at the models' scale, for
 holding each kernel against its plain version and timing it
-(``chip_smoke.py``, ``tests/test_torch_gpu.py``, ``tune_scan``).
+(``tests/test_torch_gpu.py``, ``scripts/torch_time_kernels.py``,
+``scripts/torch_tune_scan.py``).
 
 Each draws from ``gen`` in a fixed order, so a seed gives the same
 tensors wherever it is used.

@@ -16,7 +16,7 @@ without sparsity, at the 700 W power limit):
 ``HBM_BYTES`` is what the card reports, not the data sheet's 80 GB:
 ``torch.cuda.get_device_properties(0).total_memory`` on an NVIDIA H100
 80GB HBM3 at a 700.00 W power limit (``nvidia-smi --query-gpu=name,
-power.limit``); ``chip_smoke.py`` phase 9 prints it beside this figure.
+power.limit``); ``scripts/torch_time_kernels.py`` prints both.
 """
 
 PEAK_FLOPS_BF16 = 989e12      # per GPU, bf16 dense, tensor cores

@@ -2,13 +2,18 @@
 
 Skipped where no CUDA device is present. This file imports neither JAX
 nor the JAX package, so it also runs on a machine that has only the
-port's dependencies:
+port's dependencies, with the other card tests:
 
-    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+    PYTHONPATH=src python -m pytest --noconftest -m gpu \
+        tests/test_torch_gpu*.py tests/test_torch_train_trace.py
 
 (``--noconftest`` because the shared conftest resets the JAX package's
 courier registry.)
 """
+
+import json
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,24 +28,58 @@ from repro_torch.kernels import ssm_scan as ss
 from repro_torch.models import transformer
 from repro_torch.serve.engine import ServeEngine
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+from torch_time_kernels import by_kv_group  # noqa: E402
+
 # Kernel and plain version both accumulate in fp32: a float32 output
 # differs by summation order, a bf16 one by at most a rounding step, so
 # its bound is 2 bf16 ulps at the largest |plain| value of its row (one
-# head's output vector), as in chip_smoke.
+# head's output vector). On top, the relative L2 error stays below
+# REL_L2_TOL. ``test_cuda_check_rejects_a_wrong_kernel`` shows the bound
+# fails a wrong output.
 REL_L2_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
-def _assert_matches_plain(out, expect):
+def _over_tol(out, expect, grad=False):
+    """By how many times ``out`` passes each bound of the plain
+    ``expect``: (the worst element's |err| over its bound, the relative
+    L2 error over REL_L2_TOL). A gradient (``grad``) may have rows that
+    are a cancellation: dQ of the first causal query is 0 exactly (P = 1
+    and dS = dout.v - delta = 0), and both sides compute it as a residue
+    of fp32 rounding in dout.v - delta. Each row's bound is then the
+    larger of 2 bf16 ulps at its largest |plain| value and the fp32 bound
+    (2e-5) at the gradient's largest |plain| value."""
     e = expect.float()
+    err = (out.float() - e).abs()
     if out.dtype == torch.bfloat16:
         row_max = e.abs().amax(dim=-1, keepdim=True)
         atol = 2 * torch.exp2(torch.floor(torch.log2(row_max)) - 7)
+        if grad:
+            atol = torch.maximum(atol, 2e-5 * e.abs().max())
     else:
         atol = torch.full_like(e, 2e-5)
-    err = (out.float() - e).abs()
-    assert bool((err <= atol).all()), float((err - atol).max())
-    err = (out.float() - e).norm().item()
-    assert err <= REL_L2_TOL[out.dtype] * e.norm().item()
+    # An element whose bound is 0 (a row of zeros) must have no error.
+    worst = torch.where(err == 0, torch.zeros_like(err), err / atol).max()
+    norm, limit = err.norm().item(), REL_L2_TOL[out.dtype] * e.norm().item()
+    rel = norm / limit if limit else (0.0 if norm == 0 else float("inf"))
+    return worst.item(), rel
+
+
+def _assert_matches_plain(out, expect, grad=False):
+    worst, rel = _over_tol(out, expect, grad)
+    assert worst <= 1 and rel <= 1, {"err_over_tol": worst,
+                                     "rel_l2_over_tol": rel}
+
+
+def _launches() -> dict:
+    return {**dec.launches, **fa.launches, **rg.launches, **ss.launches}
+
+
+def _since(before: dict) -> dict:
+    """Each kernel's launches since ``_launches()`` read ``before``."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {k: n - before[k] for k, n in _launches().items()}
 
 
 @pytest.fixture
@@ -57,7 +96,8 @@ def _randn(gen, shape, dtype, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
-@pytest.mark.parametrize("H,KV", [(12, 2), (10, 1)])  # Qwen2, RecurrentGemma
+@pytest.mark.parametrize("H,KV", [(12, 2), (10, 1),     # Qwen2, RecurrentGemma
+                                  (4, 4)])              # groups of one
 def test_cuda_kernels_match_plain(cuda, dtype, dh, H, KV):
     gen = torch.Generator(device=cuda).manual_seed(dh)
     B, L = 3, 777
@@ -80,9 +120,11 @@ def test_cuda_kernels_match_plain(cuda, dtype, dh, H, KV):
     pages[:, -1] = 0
     pages[2] = pages[0]
     pvalid = torch.rand((B, n * ps), generator=gen, device=cuda) < 0.6
+    pvalid[1] = False                                 # all-invalid row
     out = dec.paged_decode_attention(q, kp, vp, pages, pvalid)
     _assert_matches_plain(out,
                           ref.paged_decode_attention(q, kp, vp, pages, pvalid))
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
 
 
 @pytest.mark.gpu
@@ -110,6 +152,10 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     (1, 70, 333, 6, 1, True, 100),            # right-aligned, windowed
     (2, 65, 129, 4, 4, False, None),          # encoder
     (1, 300, 1000, 4, 2, True, 130),          # ragged, windowed, Sq < Sk
+    (2, 1000, 1000, 8, 2, True, None),        # ragged, 16 key tiles
+    (2, 128, 640, 8, 1, True, 300),           # one KV head, windowed
+    (3, 200, 200, 4, 2, True, 50),            # a window under one tile
+    (1, 500, 777, 6, 3, True, None),          # right-aligned, groups of 2
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, dh, case):
     B, Sq, Sk, H, KV, causal, window = case
@@ -125,17 +171,22 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, dh, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [
-    # B, S, H, KV, dh, window: Qwen2-1.5B and RecurrentGemma-2B LOCAL
-    (1, 1536, 12, 2, 128, None),
-    (1, 3072, 10, 1, 256, 2048),
+    # B, S, H, KV, dh, window, dtype
+    (1, 1536, 12, 2, 128, None, torch.bfloat16),  # Qwen2-1.5B
+    (1, 3072, 10, 1, 256, 2048, torch.bfloat16),  # RecurrentGemma-2B LOCAL
+    (1, 128, 32, 8, 128, 4096, torch.bfloat16),   # Mixtral-8x7B
+    (2, 128, 32, 8, 128, None, torch.bfloat16),   # Llama-3.2-Vision self
+    (8, 64, 12, 4, 64, None, torch.bfloat16),     # the training evaluator
+    (8, 1024, 12, 2, 128, None, torch.float32),   # an fp32 Qwen2 evaluator
 ])
 def test_cuda_flash_attention_full_prefill_shapes(cuda, case):
-    """bf16 (the tensor-core kernel) at the serving path's prefill shapes."""
-    B, S, H, KV, dh, window = case
+    """K3 at the prefill shapes of the served models and the training
+    program's evaluator (bf16: the tensor-core kernel)."""
+    B, S, H, KV, dh, window, dtype = case
     gen = torch.Generator(device=cuda).manual_seed(S)
-    q = _randn(gen, (B, S, H, dh), torch.bfloat16, cuda)
-    k = _randn(gen, (B, S, KV, dh), torch.bfloat16, cuda)
-    v = _randn(gen, (B, S, KV, dh), torch.bfloat16, cuda)
+    q = _randn(gen, (B, S, H, dh), dtype, cuda)
+    k = _randn(gen, (B, S, KV, dh), dtype, cuda)
+    v = _randn(gen, (B, S, KV, dh), dtype, cuda)
     out = fa.flash_attention(q, k, v, causal=True, window=window)
     _assert_matches_plain(out, ref.flash_attention(q, k, v, True, window))
 
@@ -180,6 +231,60 @@ def test_cuda_decode_attention_all_valid_image_memory(cuda, q_dtype):
     _assert_matches_plain(out, ref.decode_attention(q, k, v, valid))
 
 
+_BF16, _FP32 = torch.bfloat16, torch.float32
+_RG_FILLS = [2048, 1500, 77, 2048, 2000, 1024, 300, 2048]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # B, H, KV, dh, slots, each row's valid slots, q dtype, page size
+    (8, 12, 2, 128, 2048, [2048] * 8, _BF16, None),     # Qwen2-1.5B
+    (1, 10, 1, 256, 2048, [2048], _BF16, None),         # RecurrentGemma-2B
+    (3, 10, 1, 256, 2048, _RG_FILLS[:3], _FP32, None),  # LOCAL ring, fp32 q
+    (8, 10, 1, 256, 2048, _RG_FILLS, _BF16, None),
+    (3, 32, 8, 128, 160, [160, 145, 129], _BF16, None),  # Mixtral SWA ring
+    (2, 32, 8, 128, 160, [137, 137], _BF16, None),      # Llama-Vision self
+    (2, 12, 2, 128, 777, [777, 400], _FP32, None),      # fp32 q, bf16 K/V
+    (8, 12, 2, 128, 2048, [2048] * 8, _BF16, 16),       # Qwen2-1.5B paged
+    (3, 4, 2, 64, 40, [40, 25, 0], _FP32, 8),           # pages of 8
+    (3, 4, 2, 64, 40, [40, 25, 0], _BF16, 8),
+])
+def test_cuda_decode_attention_serving_shapes(cuda, case):
+    """K1 and K2 at the decode shapes the served models run: rows at
+    different fills of a flat bf16 cache (an fp32 q over it as an fp32
+    run has), and a page pool in q's dtype whose table shares a prefix
+    between two rows and ends on the trash page; an empty row is
+    exactly zero."""
+    B, H, KV, dh, L, fills, q_dtype, ps = case
+    gen = torch.Generator(device=cuda).manual_seed(L + B)
+    q = _randn(gen, (B, H, dh), q_dtype, cuda)
+    valid = (torch.arange(L, device=cuda)[None, :]
+             < torch.tensor(fills, device=cuda)[:, None])
+    if ps is None:
+        k, v = (_randn(gen, (B, L, KV, dh), _BF16, cuda) for _ in range(2))
+        before = dec.launches["decode_attention"]
+        out = dec.decode_attention(q, k, v, valid)
+        assert dec.launches["decode_attention"] == before + 1
+        want = ref.decode_attention(q, k, v, valid)
+    else:
+        n = L // ps
+        P = B * n + 1
+        kp, vp = (_randn(gen, (P, ps, KV, dh), q_dtype, cuda)
+                  for _ in range(2))
+        pages = torch.randperm(P, generator=gen, device=cuda)
+        pages = pages[:B * n].to(torch.int32).reshape(B, n).contiguous()
+        pages[1, :n // 4] = pages[0, :n // 4]
+        pages[:, -1] = 0
+        before = dec.launches["paged_decode_attention"]
+        out = dec.paged_decode_attention(q, kp, vp, pages, valid)
+        assert dec.launches["paged_decode_attention"] == before + 1
+        want = ref.paged_decode_attention(q, kp, vp, pages, valid)
+    _assert_matches_plain(out, want)
+    for b, fill in enumerate(fills):
+        if not fill:
+            assert torch.equal(out[b], torch.zeros_like(out[b]))
+
+
 @pytest.mark.gpu
 def test_cuda_flash_wrapper_takes_dh80_and_refuses_dh96(cuda):
     q = torch.zeros((1, 8, 2, 80), device=cuda)
@@ -190,43 +295,6 @@ def test_cuda_flash_wrapper_takes_dh80_and_refuses_dh96(cuda):
     q = torch.zeros((1, 8, 2, 96), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q, causal=False)
-
-
-def _assert_grad_matches_plain(out, expect):
-    """``_assert_matches_plain`` for a bf16 gradient, whose rows may be a
-    cancellation: dQ of the first causal query is 0 exactly (P = 1 and
-    dS = dout.v - delta = 0), and both sides compute it as a residue of
-    fp32 rounding in dout.v - delta. Each row's bound is then the larger
-    of 2 bf16 ulps at its largest |plain| value and the fp32 bound of the
-    forward's tests (2e-5) at the gradient's largest |plain| value."""
-    e = expect.float()
-    row_max = e.abs().amax(dim=-1, keepdim=True)
-    atol = torch.maximum(2 * torch.exp2(torch.floor(torch.log2(row_max)) - 7),
-                         2e-5 * e.abs().max())
-    err = (out.float() - e).abs()
-    assert bool((err <= atol).all()), float((err - atol).max())
-    err = (out.float() - e).norm().item()
-    assert err <= REL_L2_TOL[out.dtype] * e.norm().item()
-
-
-def _by_group(fn, q, k, v, *rest, lse=None):
-    """``fn`` (a plain version over q/k/v and, for the backward, out,
-    lse and dout) one KV head's group at a time, its outputs joined on
-    the head axis: the [H, Sq, Sk] fp32 logits of Mellum2's 32 heads at
-    8192 tokens would take tens of GB at once."""
-    KV = k.shape[2]
-    G = q.shape[2] // KV
-    parts = []
-    for g in range(KV):
-        hq = slice(g * G, (g + 1) * G)
-        extra = [t[:, :, hq].contiguous() for t in rest]
-        if lse is not None:
-            extra.insert(1, lse[:, hq].contiguous())
-        parts.append(fn(q[:, :, hq].contiguous(),
-                        k[:, :, g:g + 1].contiguous(),
-                        v[:, :, g:g + 1].contiguous(), *extra))
-    return [torch.cat(xs, dim=1 if x.dim() == 3 else 2)
-            for xs, x in zip(zip(*parts), parts[0])]
 
 
 BWD_CASES = [
@@ -249,8 +317,7 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, case):
     log-sum-exp, and the gradient its backward kernels give, against the
     plain versions over the kernels' own output and log-sum-exp, within
     the bf16 bound of the forward's tests (the gradient's floored as
-    ``_assert_grad_matches_plain`` says; the log-sum-exp, fp32, within
-    1e-5). The two cells' shapes included: Qwen2's spreads each group's
+    ``_over_tol`` says; the log-sum-exp, fp32, within 1e-5). The two cells' shapes included: Qwen2's spreads each group's
     heads over six blocks, Mellum2's full layers over two."""
     B, Sq, Sk, H, KV, dh, causal, window = case
     gen = torch.Generator(device=cuda).manual_seed(Sq + dh)
@@ -266,22 +333,22 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, case):
         before["flash_attention_bwd"] + 1
     _, lse = torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal,
                                                        window, None)
-    want_out, want_lse = _by_group(
+    want_out, want_lse = by_kv_group(
         lambda *a: ref.flash_attention_lse(*a, causal, window), q, k, v)
     _assert_matches_plain(out.detach(), want_out)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
-    want = _by_group(
+    want = by_kv_group(
         lambda q, k, v, o, lse, g: ref.flash_attention_bwd(
             q, k, v, o, lse, g, causal, window),
         q, k, v, out.detach(), g, lse=lse)
     for leaf, w in zip(leaves, want):
-        _assert_grad_matches_plain(leaf.grad, w)
+        _assert_matches_plain(leaf.grad, w, grad=True)
     # The last key tile's gradient (keys every case's last query sees)
     # dropped is rejected.
     wrong = want[1].clone()
     wrong[:, Sk - 64:] = 0
     with pytest.raises(AssertionError):
-        _assert_grad_matches_plain(wrong, want[1])
+        _assert_matches_plain(wrong, want[1], grad=True)
 
 
 @pytest.mark.gpu
@@ -333,7 +400,9 @@ def test_cuda_decode_attention_repeats_bit_identical(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,W", [(1, 3072, 2560), (3, 37, 100)])
+@pytest.mark.parametrize("B,S,W", [(1, 3072, 2560),   # RecurrentGemma-2B
+                                   (3, 37, 100), (2, 777, 2560),
+                                   (3, 1001, 2501)])
 def test_cuda_rglru_scan_matches_plain(cuda, dtype, B, S, W):
     """Multiply then add, each rounded, in both: bit-identical."""
     gen = torch.Generator(device=cuda).manual_seed(S)
@@ -373,6 +442,8 @@ def test_cuda_rglru_scan_ring_edges(cuda, dtype, B, S, W):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Di,N", [(1, 2048, 8192, 16),  # Falcon-Mamba-7B
+                                      (3, 257, 8192, 16), (1, 1, 8192, 16),
+                                      (1, 7, 8190, 16), (2, 1001, 1000, 8),
                                       (3, 1001, 333, 8), (2, 7, 100, 4),
                                       (1, 1, 64, 16)])
 def test_cuda_ssm_scan_matches_plain(cuda, dtype, B, S, Di, N):
@@ -460,35 +531,187 @@ def test_cuda_prefill_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ss.ssm_scan(*args[:3], bc[..., :16], bc[..., 16:], *args[5:])
 
 
+# The wrong kernels, each the plain version with one fault, at a serving
+# or training path's full-width shape. Each returns (the kernel's output,
+# the plain version's, the wrong one's, whether it is a gradient).
+
+def _wrong_decode(cuda, paged):
+    """K1 (K2 through a page table) at Qwen2-1.5B's decode, 32 slots
+    from the middle of the cache dropped."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    B, H, KV, dh, L, ps = 8, 12, 2, 128, 2048, 16
+    q = _randn(gen, (B, H, dh), _BF16, cuda)
+    valid = torch.ones((B, L), dtype=torch.bool, device=cuda)
+    dropped = valid.clone()
+    dropped[:, L // 2:L // 2 + 32] = False
+    if not paged:
+        k, v = (_randn(gen, (B, L, KV, dh), _BF16, cuda) for _ in range(2))
+        return (dec.decode_attention(q, k, v, valid),
+                ref.decode_attention(q, k, v, valid),
+                ref.decode_attention(q, k, v, dropped), False)
+    P = B * (L // ps) + 1
+    kp, vp = (_randn(gen, (P, ps, KV, dh), _BF16, cuda) for _ in range(2))
+    pages = torch.randperm(P, generator=gen, device=cuda)[:P - 1]
+    pages = pages.to(torch.int32).reshape(B, L // ps).contiguous()
+    return (dec.paged_decode_attention(q, kp, vp, pages, valid),
+            ref.paged_decode_attention(q, kp, vp, pages, valid),
+            ref.paged_decode_attention(q, kp, vp, pages, dropped), False)
+
+
+def _wrong_prefill(cuda, causal):
+    """K3 at RecurrentGemma-2B's LOCAL prefill (window 2048) or, not
+    causal, at HuBERT-XLarge's encoder (dh 80): 64 keys from the middle
+    dropped."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    B, S, H, KV, dh, window = ((1, 3072, 10, 1, 256, 2048) if causal
+                               else (1, 1500, 16, 16, 80, None))
+    q = _randn(gen, (B, S, H, dh), _BF16, cuda)
+    k, v = (_randn(gen, (B, S, KV, dh), _BF16, cuda) for _ in range(2))
+    dropped = ref.visible(S, S, causal, window, q.device).clone()
+    dropped[:, S // 2:S // 2 + 64] = False
+    return (fa.flash_attention(q, k, v, causal, window),
+            ref.flash_attention(q, k, v, causal, window),
+            ref.masked_attention(q, k, v, dropped), False)
+
+
+def _wrong_backward(cuda):
+    """K3b at Qwen2-1.5B's training attention (4 x 1024, 12/2 heads):
+    the dK of 64 keys from the middle dropped."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    B, S, H, KV, dh = 4, 1024, 12, 2, 128
+    q, g = (_randn(gen, (B, S, H, dh), _BF16, cuda) for _ in range(2))
+    k, v = (_randn(gen, (B, S, KV, dh), _BF16, cuda) for _ in range(2))
+    out, lse = torch.ops.repro_torch.flash_attention_fwd(q, k, v, True,
+                                                         None, None)
+    got = torch.ops.repro_torch.flash_attention_bwd(g, q, k, v, out, lse,
+                                                    True, None, None)
+    want = by_kv_group(lambda q, k, v, o, lse, g: ref.flash_attention_bwd(
+        q, k, v, o, lse, g, True, None), q, k, v, out, g, lse=lse)
+    wrong = want[1].clone()
+    wrong[:, S // 2:S // 2 + 64] = 0
+    return got[1], want[1], wrong, True
+
+
+def _wrong_rglru(cuda):
+    """K4 at RecurrentGemma-2B's prefill (fp32 a/x): h reset to 0 at
+    S/2."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    S = 3072
+    a, x, h0 = scan_inputs.rglru(gen, 1, S, 2560, _FP32, cuda)
+    want, _ = ref.rglru_scan(a, x, h0)
+    y1, _ = ref.rglru_scan(a[:, :S // 2], x[:, :S // 2], h0)
+    y2, _ = ref.rglru_scan(a[:, S // 2:].contiguous(),
+                           x[:, S // 2:].contiguous(), torch.zeros_like(h0))
+    return rg.rglru_scan(a, x, h0)[0], want, torch.cat([y1, y2], 1), False
+
+
+def _wrong_ssm(cuda, fault):
+    """K5 at Falcon-Mamba-7B's prefill (bf16 u): h reset to 0 at S/2, or
+    y_t read from h_{t-1}, the state before step t's update (the plain
+    scan with D = 0 and C taken one step ahead gives z_t = h_t . C_{t+1},
+    so that y_t is z_{t-1} + D u_t, and h0 . C_0 + D u_0 at t = 0)."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    S = 2048
+    args = scan_inputs.ssm(gen, 1, S, 8192, 16, _BF16, cuda)
+    u, delta, A, Bc, Cc, D, h0 = args
+    want, _ = ref.ssm_scan(*args)
+    if fault == "h reset":
+        y1, _ = ref.ssm_scan(u[:, :S // 2], delta[:, :S // 2], A,
+                             Bc[:, :S // 2], Cc[:, :S // 2], D, h0)
+        y2, _ = ref.ssm_scan(*(t[:, S // 2:].contiguous() for t in (u, delta)),
+                             A, *(t[:, S // 2:].contiguous() for t in (Bc, Cc)),
+                             D, torch.zeros_like(h0))
+        wrong = torch.cat([y1, y2], dim=1)
+    else:
+        c_next = torch.cat([Cc[:, 1:], Cc[:, :1]], dim=1).contiguous()
+        z, _ = ref.ssm_scan(u.float(), delta, A, Bc, c_next,
+                            torch.zeros_like(D), h0)
+        first = torch.einsum("bdn,bn->bd", h0, Cc[:, 0])[:, None]
+        wrong = (torch.cat([first, z[:, :-1]], dim=1)
+                 + D * u.float()).to(u.dtype)
+    return ss.ssm_scan(*args)[0], want, wrong, False
+
+
+_WRONG_KERNELS = {
+    "K1 key tile dropped": lambda c: _wrong_decode(c, paged=False),
+    "K2 key tile dropped": lambda c: _wrong_decode(c, paged=True),
+    "K3 key tile dropped": lambda c: _wrong_prefill(c, causal=True),
+    "K3 non-causal key tile dropped": lambda c: _wrong_prefill(c, False),
+    "K3b key tile's dK dropped": _wrong_backward,
+    "K4 h reset at S/2": _wrong_rglru,
+    "K5 h reset at S/2": lambda c: _wrong_ssm(c, "h reset"),
+    "K5 y_t from h_{t-1}": lambda c: _wrong_ssm(c, "previous h"),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch,page_size", [("qwen2-1.5b", None),
-                                            ("qwen2-1.5b", 4),
-                                            ("recurrentgemma-2b", None),
-                                            ("falcon-mamba-7b", None),
-                                            ("mixtral-8x7b", None)])
-def test_cuda_engine_flash_matches_dense(cuda, arch, page_size):
+@pytest.mark.parametrize("fault", list(_WRONG_KERNELS))
+def test_cuda_check_rejects_a_wrong_kernel(cuda, fault, record_property):
+    """The bound every kernel test holds its kernel to passes the kernel
+    and fails a wrong one: the plain version with one fault, at a
+    serving or training path's full-width shape. By how many times the
+    wrong output passes each bound is recorded (the junit XML's
+    properties) and printed."""
+    got, want, wrong, grad = _WRONG_KERNELS[fault](cuda)
+    _assert_matches_plain(got, want, grad)
+    worst, rel = _over_tol(wrong, want, grad)
+    record_property("err_over_tol", worst)
+    record_property("rel_l2_over_tol", rel)
+    print(json.dumps({"fault": fault, "err_over_tol": worst,
+                      "rel_l2_over_tol": rel}))
+    with pytest.raises(AssertionError):
+        _assert_matches_plain(wrong, want, grad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,page_size,sync_every,kernels", [
+    ("qwen2-1.5b", None, 1, ("decode_attention", "flash_attention")),
+    ("qwen2-1.5b", None, 8, ("decode_attention", "flash_attention")),
+    ("qwen2-1.5b", 4, 1, ("paged_decode_attention",)),
+    ("qwen2-1.5b", 4, 8, ("paged_decode_attention",)),
+    ("recurrentgemma-2b", None, 1,
+     ("decode_attention", "flash_attention", "rglru_scan")),
+    ("falcon-mamba-7b", None, 1, ("ssm_scan",)),
+    ("mixtral-8x7b", None, 1, ("decode_attention", "flash_attention"))])
+def test_cuda_engine_flash_matches_dense(cuda, arch, page_size, sync_every,
+                                         kernels):
     """The reduced config's engine on the card: greedy tokens through the
     kernels (prefill flash attention, the RG-LRU and selective scans,
     flash-decode; Mixtral's MoE around them) equal the plain PyTorch
-    path's."""
+    path's, with a prompt longer than RecurrentGemma's window and two
+    that share a prefix, which a paged engine serves from its prefix
+    cache. The flash run launches each of ``kernels``, the selective
+    scan once a layer a prompt."""
     import dataclasses
     cfg = dataclasses.replace(configs.get_reduced(arch),
                               compute_dtype="float32")
     params = transformer.init_params(cfg, seed=0, device=cuda)
     rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size, 8).astype(np.int32)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (5, 9, 12, 7)]
+               for n in (5, 9, 18, 7)]
+    prompts += [np.concatenate([shared, rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32)]) for n in (3, 5)]
     outs = []
     for impl in ("dense", "flash"):
         eng = ServeEngine(cfg, params, num_slots=2, context_len=24,
-                          max_new=4, sync_every=1, decode_impl=impl,
+                          max_new=4, sync_every=sync_every, decode_impl=impl,
                           page_size=page_size, num_pages=16, device=cuda)
+        before = _launches()
         futs = [eng.submit(p) for p in prompts]
         while not all(f.done() for f in futs):
             eng.step()
         outs.append([f.result() for f in futs])
+        hits = eng.stats().get("prefix_cache", {}).get("hits", 0)
+        eng.stop()
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+    run = _since(before)
+    assert all(run[k] for k in kernels), run
+    if cfg.ssm_state:
+        assert run["ssm_scan"] == cfg.num_layers * len(prompts)
+    if page_size:
+        assert hits
 
 
 @pytest.mark.gpu
@@ -522,7 +745,7 @@ def test_cuda_vision_generate_flash_matches_dense(cuda):
 @pytest.mark.gpu
 def test_cuda_hubert_forward_flash_matches_dense(cuda):
     """Reduced HuBERT on the card at fp32: hidden states through K3
-    (non-causal) within 1e-4 of the plain path's."""
+    (non-causal, one launch a layer) within 1e-4 of the plain path's."""
     import dataclasses
     cfg = dataclasses.replace(configs.get_reduced("hubert-xlarge"),
                               compute_dtype="float32")
@@ -530,7 +753,9 @@ def test_cuda_hubert_forward_flash_matches_dense(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn((2, 37, cfg.d_model), generator=gen, device=cuda)
     dense, _ = transformer.forward(cfg, params, embeddings=x, impl="dense")
+    before = fa.launches["flash_attention"]
     flash, _ = transformer.forward(cfg, params, embeddings=x, impl="flash")
+    assert fa.launches["flash_attention"] == before + cfg.num_layers
     torch.testing.assert_close(flash, dense, rtol=1e-4, atol=1e-4)
 
 
@@ -584,11 +809,12 @@ def test_cuda_train_step_matches_cpu(cuda):
     the card and on the CPU from the same weights and batch: the loss
     within 1e-5 relative, each gradient leaf within 1e-4 relative L2
     (plus 1e-7 of the whole gradient's norm for a leaf whose true
-    gradient is zero, as chip_smoke's phase 8). The AdamW update of the
-    same gradients agrees within 1e-6 relative L2 on both devices; it is
-    compared on one set of gradients because AdamW's first step is
-    sign(g) elementwise, which turns a zero gradient's rounding residue
-    into a full-size step. Then one ``make_train_step`` on the card."""
+    gradient is zero: the key bias, to which a softmax is blind). The
+    AdamW update of the same gradients agrees within 1e-6 relative L2 on
+    both devices; it is compared on one set of gradients because AdamW's
+    first step is sign(g) elementwise, which turns a zero gradient's
+    rounding residue into a full-size step. Then one ``make_train_step``
+    on the card."""
     import dataclasses
 
     from repro_torch.train import optimizer as opt_lib
@@ -634,11 +860,10 @@ def test_cuda_train_step_matches_cpu(cuda):
 
 @pytest.mark.gpu
 def test_cuda_plan_estimate_matches_the_card(cuda):
-    """``chip_smoke.py`` phase 9b at a reduced size: the dry run's trace
-    of a train step on the 1x1 CUDA mesh counts the FLOPs the step runs
-    on the card with DTensor parameters (within 1%), estimates its peak
-    within a factor of 2, and the sharded step's loss equals the
-    unsharded step's."""
+    """The planner against the card: the dry run's trace of a train step
+    on the 1x1 CUDA mesh counts the FLOPs the step runs on the card with
+    DTensor parameters (within 1%), estimates its peak within a factor
+    of 2, and the sharded step's loss equals the unsharded step's."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
     from repro_torch.launch import cells

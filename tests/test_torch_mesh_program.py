@@ -1,7 +1,7 @@
 """``launch.train --mesh D,M`` across processes: the port's training
 program on a ``("data", "model")`` mesh of D·M gloo ranks, rank 0 the
 program's own process and ranks 1..D·M-1 the followers it starts
-(``train.mesh_group``), against the plain program and against the JAX
+(``sharding.group``), against the plain program and against the JAX
 package's ``build_program(mesh_shape=(2, 1))`` on 2 host devices.
 
 Each program runs as rank 0 in a fresh process of its own session under
@@ -360,7 +360,7 @@ def test_mesh_program_stops_while_a_step_is_in_flight(tmp_path):
     the step's collectives before it sends the exit command, so the
     follower exits 0 with its exit line, nothing fails, and no reap
     timeout is waited out."""
-    from repro_torch.train.mesh_group import REAP_TIMEOUT_S
+    from repro_torch.sharding.group import REAP_TIMEOUT_S
     res = run_body(_STOPPED_MID_STEP, tmp_path, STOP_SLEEP_S)
     assert res["done"] and res["failures"] == [], res
     assert res["stop_s"] < REAP_TIMEOUT_S
