@@ -1,9 +1,10 @@
 """Time the port's CUDA kernels at the shapes of PERF.md's kernel table
-(§6): for each of K1-K5 and K3's backward (K3b), at each shape, the
-kernel, its plain version (``kernels/ref.py``), a PyTorch library call
-where one computes the same thing, and the least time the work could
-take on an H100 (the bound: bytes over HBM bandwidth against operations
-over the peak rate for the inputs' type).
+(§6): for each of K1-K5, K3's backward (K3b) and the dropless expert
+layer's pair kernels (P1-P3 and their backward passes), at each shape,
+the kernel, its plain version (``kernels/ref.py``), a PyTorch library
+call where one computes the same thing, and the least time the work
+could take on an H100 (the bound: bytes over HBM bandwidth against
+operations over the peak rate for the inputs' type).
 
     python3 scripts/torch_time_kernels.py
 
@@ -88,6 +89,10 @@ K3B_SHAPES = {
 }
 K4_SHAPE = (1, 3072, 2560)            # B, S, W
 K5_SHAPE = (1, 2048, 8192, 16)        # B, S, Di, N
+# The pair kernels at Mellum2's share, one microbatch of one layer: N
+# tokens of K choices over E experts, the first H held (uniform routing:
+# ~N*K*H/E = N held rows), model width D, expert width F; bf16.
+PAIR_SHAPE = (8192, 8, 64, 8, 2304, 896)
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -389,6 +394,58 @@ def _scan_rows(gen):
                 "bound_terms_ms": terms, "sm_clock_mhz": clock / 1e6}
 
 
+def _pair_rows(gen):
+    """The pair kernels (bf16) against their plain versions, which work
+    on all N*K pairs as the layer did before them. Bound: the bytes of
+    the held rows (and of each token's row, index and gate where the
+    kernel reads or writes them) at the HBM bandwidth."""
+    from repro_torch.kernels import moe_pairs as mp
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe
+    N, K, E, H, D, F = PAIR_SHAPE
+    bf16, es = torch.bfloat16, 2
+    idx = torch.rand((N, E), generator=gen, device="cuda").argsort(-1)
+    order, pos, ends = moe.sort_pairs(idx[:, :K], 0, H)
+    tok = torch.div(order, K, rounding_mode="floor")
+    n = int(ends[-1])
+    x, dy = (_randn(gen, (N, D), bf16) for _ in range(2))
+    ye, g = (_randn(gen, (N * K, D), bf16) for _ in range(2))
+    ab = _randn(gen, (N * K, 2 * F), bf16)
+    dh = _randn(gen, (N * K, F), bf16)
+    gate = torch.rand((N, K), generator=gen, device="cuda").to(bf16)
+    index = N * K * 8                 # pos (int64), read by a token's warp
+    rows = {
+        "P1": ("gather", lambda: mp._gather(x, tok, pos, ends),
+               lambda: ref.moe_gather(x, tok, ends),
+               2 * n * D * es + n * 8),
+        "P1b": ("gather backward (unit-gate combine)",
+                lambda: mp._combine(g, None, pos, ends),
+                lambda: ref.moe_combine(g, None, pos, ends),
+                n * D * es + N * D * es + index),
+        "P2": ("SwiGLU", lambda: mp._swiglu(ab, ends),
+               lambda: ref.moe_swiglu(ab, ends), 3 * n * F * es),
+        "P2b": ("SwiGLU backward", lambda: mp._swiglu_bwd(dh, ab, ends),
+                lambda: ref.moe_swiglu_bwd(dh, ab, ends), 5 * n * F * es),
+        "P3": ("combine", lambda: mp._combine(ye, gate, pos, ends),
+               lambda: ref.moe_combine(ye, gate, pos, ends),
+               n * D * es + N * D * es + index + N * K * es),
+        "P3b": ("combine backward",
+                lambda: mp._combine_bwd(dy, ye, gate, pos, ends),
+                lambda: ref.moe_combine_bwd(dy, ye, gate, pos, ends),
+                N * D * es + 2 * n * D * es + index + 2 * N * K * es),
+    }
+    for row, (what, kernel, plain, nbytes) in rows.items():
+        yield row, f"mellum2-12b-a2.5b {what}: N={N} K={K} D={D} F={F}, " \
+            f"{n} held rows", {
+                "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                "plain_call": "ref.py over all N*K pairs (the layer's "
+                              "former tensor code)",
+                "library_ms": None,
+                "library_call": "none: no PyTorch call gathers, activates "
+                                "or combines by a count on the device",
+                "held_rows": n, **_bound(nbytes, 0, bf16)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_time_kernels.py: no CUDA device")
@@ -410,7 +467,8 @@ def main() -> None:
     log = (_build.library_path().parent / "nvcc.log").read_text()
     emit({"ptxas": ptxas_stats(log)})
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for rows in (_decode_rows, _prefill_rows, _backward_rows, _scan_rows):
+    for rows in (_decode_rows, _prefill_rows, _backward_rows, _scan_rows,
+                 _pair_rows):
         for row, shape, rec in rows(gen):
             emit({"row": row, "shape": shape, **rec})
 

@@ -278,6 +278,26 @@ def _bind(lib: ctypes.CDLL) -> None:
         I, I, I, I,                   # u dtype, N, B, Di
         P]                            # int[8] out
     lib.repro_ssm_scan_config.restype = I
+    lib.repro_moe_gather.argtypes = [
+        I, P, P, P, I, P,             # dtype, x, tok, ends, H, out
+        I, I, P]                      # M, D, stream
+    lib.repro_moe_swiglu.argtypes = [
+        I, P, P, I, P,                # dtype, ab, ends, H, h
+        I, I, P]                      # M, F, stream
+    lib.repro_moe_swiglu_bwd.argtypes = [
+        I, P, P, P, I, P,             # dtype, dh, ab, ends, H, dab
+        I, I, P]                      # M, F, stream
+    lib.repro_moe_combine.argtypes = [
+        I, P, P, P, P, I, P,          # dtype, ye, gate, pos, ends, H, y
+        I, I, I, I, P]                # M, N, K, D, stream
+    lib.repro_moe_combine_bwd.argtypes = [
+        I, P, P, P, P, P, I,          # dtype, dy, ye, gate, pos, ends, H
+        P, P,                         # dye, dgate
+        I, I, I, I, P]                # M, N, K, D, stream
+    for name in ("repro_moe_gather", "repro_moe_swiglu",
+                 "repro_moe_swiglu_bwd", "repro_moe_combine",
+                 "repro_moe_combine_bwd"):
+        getattr(lib, name).restype = I
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 # Finite, as in the JAX package: a masked logit plus a real one never
 # overflows, and exp(NEG_INF - m) is exactly 0 in fp32.
@@ -253,3 +254,72 @@ def _halving_sum(t: torch.Tensor) -> torch.Tensor:
         folded = t[..., :half] + t[..., half:2 * half]
         t = folded if n % 2 == 0 else torch.cat([folded, t[..., -1:]], -1)
     return t[..., 0]
+
+
+# The dropless expert layer's pair-wise passes (``moe_pairs.cu``): the
+# (token, choice) pairs sorted by held expert, the held ones first, and
+# ends[-1] of them held. What these compute for the rows past ends[-1]
+# the kernels leave unspecified.
+
+def moe_held(pos: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """[N, K] bool: the choices held, those whose row ``pos`` [N, K] in
+    the sorted order lies before ends[-1]."""
+    return pos < ends[-1]
+
+
+def moe_gather(x: torch.Tensor, tok: torch.Tensor,
+               ends: torch.Tensor) -> torch.Tensor:
+    """x [N, D], tok [M] -> x[tok] [M, D]: each pair's input row."""
+    return x[tok]
+
+
+def moe_swiglu(ab: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """ab = [a | b] [M, 2F] -> silu(a) * b [M, F], in fp32 and rounded
+    once to ab's dtype."""
+    a, b = ab.float().chunk(2, dim=-1)
+    return (F.silu(a) * b).to(ab.dtype)
+
+
+def moe_swiglu_bwd(dh: torch.Tensor, ab: torch.Tensor,
+                   ends: torch.Tensor) -> torch.Tensor:
+    """``moe_swiglu``'s gradient d[a | b] [M, 2F] from dh [M, F]: with
+    s = sigmoid(a), da = dh b s (1 + a (1 - s)) and db = dh a s, in fp32
+    and rounded once."""
+    a, b = ab.float().chunk(2, dim=-1)
+    g = dh.float()
+    s = torch.sigmoid(a)
+    da = (g * b) * (s * (1 + a * (1 - s)))
+    return torch.cat([da, g * (a * s)], dim=-1).to(ab.dtype)
+
+
+def moe_combine(ye: torch.Tensor, gate: Optional[torch.Tensor],
+                pos: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """ye [M, D], gate [N, K] (None: every gate 1), pos [N, K] -> [N, D]:
+    each token's held rows, selected (0 x NaN is NaN, and the rows past
+    ends[-1] are unspecified), gated and summed over the choices in fp32,
+    rounded once to ye's dtype. With unit gates, the gradient of
+    ``moe_gather`` (each token's held pairs' rows, summed)."""
+    zero = torch.zeros((), dtype=ye.dtype, device=ye.device)
+    got = torch.where(moe_held(pos, ends)[..., None], ye[pos], zero)
+    if gate is None:
+        return got.float().sum(dim=1).to(ye.dtype)
+    return (gate.float()[..., None] * got.float()).sum(dim=1).to(ye.dtype)
+
+
+def moe_combine_bwd(dy: torch.Tensor, ye: torch.Tensor,
+                    gate: Optional[torch.Tensor], pos: torch.Tensor,
+                    ends: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``moe_combine``'s gradients from dy [N, D]: (dye [M, D], each held
+    row gate x dy of its token and the rest 0; dgate [N, K], dy . ye of
+    the choice's row, 0 where it is not held), in fp32 and rounded once to
+    ye's and the gate's dtype."""
+    held = moe_held(pos, ends)[..., None]
+    zero = torch.zeros((), dtype=ye.dtype, device=ye.device)
+    g = dy.float()[:, None, :]
+    scaled = g if gate is None else gate.float()[..., None] * g
+    dgot = torch.where(held, scaled.to(ye.dtype), zero)
+    dye = torch.zeros_like(ye).index_put_((pos,), dgot, accumulate=True)
+    got = torch.where(held, ye[pos], zero)
+    dgate = (g * got.float()).sum(dim=-1)
+    return dye, dgate.to(ye.dtype if gate is None else gate.dtype)

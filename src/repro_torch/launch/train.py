@@ -119,7 +119,8 @@ class LMTask:
     For a stack of dropless expert layers the pass also leaves, on the
     device, the rows each held expert computed, summed over the
     microbatches; ``read_step`` reads their sum and their largest entry
-    back with the loss, in one copy."""
+    back with the loss, in one copy, beside the pairs the step routed
+    (layers x tokens x top-k, counted on the host)."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  device="cuda"):
@@ -145,19 +146,26 @@ class LMTask:
     def grad_fn(self, params, batch):
         loss, aux, grads = self._compute(params, batch)
         self._last.rows = aux.get("moe_rows")
+        if self._last.rows is not None:
+            self._last.pairs = (self._last.rows.shape[0]
+                                * batch["tokens"].numel()
+                                * self._model_cfg.experts_per_token)
         return loss, grads
 
     def read_step(self, loss) -> tuple[float, dict]:
         """(the loss as a float, the step's readings): with held experts,
         ``moe.rows_held``, the rows all of them computed in every layer,
         and ``moe.rows_max``, the busiest one's, read back with the loss
-        in one copy."""
+        in one copy, and ``moe.pairs``, the (token, choice) pairs routed
+        in every layer: rows_held / pairs is the share of the pairs the
+        pair kernels touch."""
         rows = getattr(self._last, "rows", None)
         self._last.rows = None
         if rows is None:
             return float(loss), {}
         host = torch.stack([loss.float(), rows.sum(), rows.max()]).tolist()
-        return host[0], {"moe.rows_held": host[1], "moe.rows_max": host[2]}
+        return host[0], {"moe.rows_held": host[1], "moe.rows_max": host[2],
+                         "moe.pairs": self._last.pairs}
 
     def state_to_numpy(self, state: dict) -> dict:
         return convert.train_state_to_numpy(self._model_cfg, state)

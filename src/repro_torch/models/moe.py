@@ -40,7 +40,10 @@ the rest are left out. The pairs are sorted by held expert (the others
 last) with the offsets kept on the device, so a CUDA graph can hold the
 pass: no ``nonzero``, no boolean indexing, no count read to the host.
 The experts' products are grouped over those offsets
-(``grouped_mm``), their cost following the rows routed here.
+(``grouped_mm``), their cost following the rows routed here, and so is
+the work around them: the gather of the held pairs' rows, SwiGLU and the
+combine are the kernels of ``kernels/moe_pairs.py``, which read the held
+count on the device and touch no row past it.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.kernels import _shards
+from repro_torch.kernels import _shards, moe_pairs
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import shard
@@ -139,25 +142,45 @@ def grouped_mm(a: torch.Tensor, b: torch.Tensor,
     return torch.cat(parts)
 
 
-class _PairRows(torch.autograd.Function):
-    """x [N, D] -> x[tok] [M, D], one row per (token, choice) pair in
-    expert order. The gradient of token t sums, in choice order, the rows
-    of its held pairs (``pos`` [N, K] their places, ``held`` [N, K]):
-    selected, not multiplied, since the rows of the others are ones the
-    grouped products leave unspecified, and summed without atomics, so a
-    replayed pass repeats it bit for bit."""
+class _CastCat(torch.autograd.Function):
+    """[a | b] along the last dim in ``dtype``: the two casts write into
+    one tensor, and the gradient's halves go back in a's and b's dtypes."""
 
     @staticmethod
-    def forward(ctx, x, tok, pos, held):
-        ctx.save_for_backward(pos, held)
-        return x[tok]
+    def forward(ctx, a, b, dtype):
+        ctx.dtypes, ctx.fa = (a.dtype, b.dtype), a.shape[-1]
+        out = a.new_empty((*a.shape[:-1], a.shape[-1] + b.shape[-1]),
+                          dtype=dtype)
+        out[..., :ctx.fa] = a
+        out[..., ctx.fa:] = b
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        pos, held = ctx.saved_tensors
-        zero = torch.zeros((), dtype=g.dtype, device=g.device)
-        return torch.where(held[..., None], g[pos], zero).sum(1), None, \
-            None, None
+        whole = torch.contiguous_format
+        return (g[..., :ctx.fa].to(ctx.dtypes[0], memory_format=whole),
+                g[..., ctx.fa:].to(ctx.dtypes[1], memory_format=whole), None)
+
+
+def sort_pairs(idx: torch.Tensor, lo: int, hi: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The (token, choice) pairs of idx [N, K] (the chosen experts)
+    sorted by held expert, experts lo .. hi-1 held: (order [N*K], the
+    pairs in that order; pos [N, K], each pair's row in it; ends [H]
+    int32, each held expert's end row, so ends[-1] pairs are held). Each
+    pair's key is its held expert, or H for the others, sorted stably:
+    each expert's rows stay in token order and the others come last."""
+    N, K = idx.shape
+    H = hi - lo
+    local = idx - lo
+    held = (local >= 0) & (local < H)
+    key = torch.where(held, local, torch.full_like(local, H)).reshape(-1)
+    key, order = torch.sort(key, stable=True)
+    ends = torch.searchsorted(key, torch.arange(H, device=idx.device),
+                              right=True, out_int32=True)
+    pos = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=idx.device))
+    return order, pos.view(N, K), ends
 
 
 def apply_dropless(cfg: ModelConfig, p: dict, x: torch.Tensor
@@ -170,9 +193,9 @@ def apply_dropless(cfg: ModelConfig, p: dict, x: torch.Tensor
         raise NotImplementedError("the dropless expert layer runs on "
                                   "plain tensors, not under a mesh")
     B, S, D = x.shape
-    E, K = cfg.num_experts, cfg.experts_per_token
+    K = cfg.experts_per_token
     lo, hi = cfg.held_range
-    H, N = hi - lo, B * S
+    N = B * S
     xf = x.reshape(N, D)
     logits = layers.apply_linear(p["router"], xf).float()        # [N, E]
     probs = torch.softmax(logits, dim=-1)
@@ -181,30 +204,18 @@ def apply_dropless(cfg: ModelConfig, p: dict, x: torch.Tensor
     gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
     k_gate = torch.gather(gates, -1, idx).to(x.dtype)             # [N, K]
 
-    # Each pair's held expert, or H for the others; sorted stably, so
-    # each expert's rows stay in token order and the others come last.
-    local = idx - lo
-    held = (local >= 0) & (local < H)
-    key = torch.where(held, local, torch.full_like(local, H)).reshape(-1)
-    key, order = torch.sort(key, stable=True)
-    ends = torch.searchsorted(key, torch.arange(H, device=x.device),
-                              right=True, out_int32=True)         # [H]
-    pos = torch.empty_like(order).scatter_(
-        0, order, torch.arange(order.numel(), device=x.device))
-    pos = pos.view(N, K)                  # each pair's row in that order
+    order, pos, ends = sort_pairs(idx, lo, hi)
 
-    xs = _PairRows.apply(xf, torch.div(order, K, rounding_mode="floor"),
-                         pos, held)                               # [NK, D]
-    h = (F.silu(grouped_mm(xs, p["w_gate"].to(x.dtype), ends))
-         * grouped_mm(xs, p["w_up"].to(x.dtype), ends))
+    # The held pairs' rows (ends[-1] of them, the rest left unspecified):
+    # gathered, through one grouped product against [w_gate | w_up],
+    # SwiGLU and the down product, then each token's gated and summed in
+    # choice order in fp32, rounded once to x's dtype.
+    xs = moe_pairs.gather(xf, torch.div(order, K, rounding_mode="floor"),
+                          pos, ends)                              # [NK, D]
+    w_in = _CastCat.apply(p["w_gate"], p["w_up"], x.dtype)      # [H,D,2F]
+    h = moe_pairs.swiglu(grouped_mm(xs, w_in, ends), ends)        # [NK, F]
     ye = grouped_mm(h, p["w_down"].to(x.dtype), ends)
-
-    # Combine: each token's held pairs, selected (rows past the last
-    # held one are unspecified, and 0 x NaN is NaN), gated and summed
-    # in fp32, rounded once to x's dtype.
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    got = torch.where(held[..., None], ye[pos], zero)            # [N,K,D]
-    y = (k_gate.float()[..., None] * got.float()).sum(dim=1).to(x.dtype)
+    y = moe_pairs.combine(ye, k_gate, pos, ends)
 
     rows = torch.diff(ends, prepend=ends.new_zeros(1)).float()
     aux = _aux_loss(cfg, mask.mean(dim=0), probs.mean(dim=0))

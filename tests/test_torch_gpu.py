@@ -22,6 +22,7 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_pairs as mp
 from repro_torch.kernels import ref, scan_inputs
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import ssm_scan as ss
@@ -72,7 +73,8 @@ def _assert_matches_plain(out, expect, grad=False):
 
 
 def _launches() -> dict:
-    return {**dec.launches, **fa.launches, **rg.launches, **ss.launches}
+    return {**dec.launches, **fa.launches, **rg.launches, **ss.launches,
+            **mp.launches}
 
 
 def _since(before: dict) -> dict:
@@ -502,6 +504,126 @@ def test_cuda_scan_launch_config(cuda):
     assert ss.launch_config(torch.float32, 4, 3, 333)["grid_x"] == 11
 
 
+# The dropless expert layer's pair kernels at Mellum2's widths: N tokens
+# of K choices over E experts, of which experts 0 .. H-1 are held; model
+# width D, expert width F.
+PAIRS = {"N": 8192, "K": 8, "E": 64, "H": 8, "D": 2304, "F": 896}
+
+
+def _pair_routing(seed, device):
+    """(tok, pos, ends, held rows) of a routing at PAIRS on ``device``:
+    held experts drawn 1/4 .. 2 times as often as one not held (uneven
+    groups), held expert 3 never (an empty group), token 0's K choices
+    all held (expert 0 twice: the kernels read rows and gates, not
+    experts) and token 1's none."""
+    N, K, E, H = (PAIRS[k] for k in "NKEH")
+    w = torch.ones(E)
+    w[:H] = torch.arange(1, H + 1) / 4
+    w[3] = 0
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.multinomial(w.repeat(N, 1), K, generator=gen)
+    idx[0] = torch.tensor([0, 1, 2, 4, 5, 6, 7, 0])
+    idx[1] = torch.arange(H, H + K)
+    from repro_torch.models import moe
+    order, pos, ends = moe.sort_pairs(idx.to(device), 0, H)
+    return (torch.div(order, K, rounding_mode="floor"), pos, ends,
+            int(ends[-1]))
+
+
+def _nan_past(t, n):
+    """t with its rows from n on NaN: rows the kernels must not read."""
+    t[n:] = float("nan")
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_pair_kernels_match_plain(cuda, dtype):
+    """Each pair kernel through its differentiable entry at Mellum2's
+    widths against its plain version: the gather (its rows exact) and its
+    backward dx, SwiGLU and d[a | b], the combine, dye and dgate. Every
+    [N*K, ..] input's rows past the held ones are NaN, and no output
+    holds one; token 1, with no choice held, gets zeros."""
+    N, K, D, F = (PAIRS[k] for k in "NKDF")
+    tok, pos, ends, n = _pair_routing(21, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    before = _launches()
+
+    x = _randn(gen, (N, D), dtype, cuda).requires_grad_()
+    xs = mp.gather(x, tok, pos, ends)
+    g = _nan_past(_randn(gen, (N * K, D), dtype, cuda), n)
+    xs.backward(g)
+    assert torch.equal(xs[:n], x.detach()[tok[:n]])
+    _assert_matches_plain(x.grad, ref.moe_combine(g, None, pos, ends))
+
+    ab = _nan_past(_randn(gen, (N * K, 2 * F), dtype, cuda) * 3, n)
+    ab.requires_grad_()
+    h = mp.swiglu(ab, ends)
+    dh = _nan_past(_randn(gen, (N * K, F), dtype, cuda), n)
+    h.backward(dh)
+    a_b = ab.detach()[:n]
+    _assert_matches_plain(h[:n], ref.moe_swiglu(a_b, ends))
+    _assert_matches_plain(ab.grad[:n], ref.moe_swiglu_bwd(dh[:n], a_b, ends))
+
+    ye = _nan_past(_randn(gen, (N * K, D), dtype, cuda), n).requires_grad_()
+    gate = torch.rand((N, K), generator=gen, device=cuda).to(dtype)
+    gate.requires_grad_()
+    y = mp.combine(ye, gate, pos, ends)
+    dy = _randn(gen, (N, D), dtype, cuda) * D ** -0.5
+    y.backward(dy)
+    _assert_matches_plain(y, ref.moe_combine(ye.detach(), gate.detach(), pos,
+                                             ends))
+    dye, dgate = ref.moe_combine_bwd(dy, ye.detach(), gate.detach(), pos,
+                                     ends)
+    _assert_matches_plain(ye.grad[:n], dye[:n])
+    _assert_matches_plain(gate.grad, dgate, grad=True)
+
+    for t in (x.grad, h[:n], ab.grad[:n], y, ye.grad[:n], gate.grad):
+        assert bool(torch.isfinite(t).all())
+    assert not (y[1].any() or x.grad[1].any() or gate.grad[1].any())
+    run = _since(before)
+    assert {k: run[k] for k in mp.launches} == {
+        "moe_gather": 1, "moe_swiglu": 1, "moe_swiglu_bwd": 1,
+        "moe_combine": 2, "moe_combine_bwd": 1}
+
+
+@pytest.mark.gpu
+def test_cuda_pair_kernels_repeat_bit_identical(cuda):
+    """Every pair kernel (bf16, Mellum2's widths) twice, then a captured
+    graph of them replayed twice: the held rows of every output equal the
+    first call's bit for bit (no atomics, fixed sums)."""
+    N, K, D, F = (PAIRS[k] for k in "NKDF")
+    tok, pos, ends, n = _pair_routing(22, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    x, dy = (_randn(gen, (N, D), _BF16, cuda) for _ in range(2))
+    ye, g = (_randn(gen, (N * K, D), _BF16, cuda) for _ in range(2))
+    ab = _randn(gen, (N * K, 2 * F), _BF16, cuda)
+    dh = _randn(gen, (N * K, F), _BF16, cuda)
+    gate = torch.rand((N, K), generator=gen, device=cuda).to(_BF16)
+
+    def run():
+        dye, dgate = mp._combine_bwd(dy, ye, gate, pos, ends)
+        return [mp._gather(x, tok, pos, ends)[:n], mp._swiglu(ab, ends)[:n],
+                mp._swiglu_bwd(dh, ab, ends)[:n],
+                mp._combine(ye, gate, pos, ends), dye[:n], dgate,
+                mp._combine(g, None, pos, ends)]
+
+    first = [t.clone() for t in run()]
+    assert all(torch.equal(a, b) for a, b in zip(run(), first))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, first))
+
+
 @pytest.mark.gpu
 def test_cuda_prefill_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 48), device=cuda)       # dh 48: no instance
@@ -632,6 +754,29 @@ def _wrong_ssm(cuda, fault):
     return ss.ssm_scan(*args)[0], want, wrong, False
 
 
+def _wrong_pairs(cuda, fault):
+    """The pair kernels at Mellum2's widths (bf16): the combine without
+    each token's last held choice, or SwiGLU stopped at ends[-2] (the
+    last held expert's rows left 0)."""
+    N, K, D, F = (PAIRS[k] for k in "NKDF")
+    tok, pos, ends, n = _pair_routing(16, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    if fault == "combine":
+        ye = _randn(gen, (N * K, D), _BF16, cuda)
+        gate = torch.rand((N, K), generator=gen, device=cuda).to(_BF16)
+        held = ref.moe_held(pos, ends)
+        last = held & (held.long().flip(1).cumsum(1).flip(1) == 1)
+        dropped = torch.where(last, torch.zeros_like(gate), gate)
+        return (mp.combine(ye, gate, pos, ends),
+                ref.moe_combine(ye, gate, pos, ends),
+                ref.moe_combine(ye, dropped, pos, ends), False)
+    ab = _randn(gen, (N * K, 2 * F), _BF16, cuda)
+    want = ref.moe_swiglu(ab[:n], ends)
+    wrong = want.clone()
+    wrong[int(ends[-2]):] = 0
+    return mp.swiglu(ab, ends)[:n], want, wrong, False
+
+
 _WRONG_KERNELS = {
     "K1 key tile dropped": lambda c: _wrong_decode(c, paged=False),
     "K2 key tile dropped": lambda c: _wrong_decode(c, paged=True),
@@ -641,6 +786,9 @@ _WRONG_KERNELS = {
     "K4 h reset at S/2": _wrong_rglru,
     "K5 h reset at S/2": lambda c: _wrong_ssm(c, "h reset"),
     "K5 y_t from h_{t-1}": lambda c: _wrong_ssm(c, "previous h"),
+    "pair combine without each token's last held choice":
+        lambda c: _wrong_pairs(c, "combine"),
+    "pair SwiGLU stopped at ends[-2]": lambda c: _wrong_pairs(c, "swiglu"),
 }
 
 
@@ -1139,6 +1287,7 @@ def test_a_mellum_pass_reads_nothing_back_to_the_host(cuda):
     the dropless layer over its held experts, two microbatches, remat)
     makes no synchronising call once warm, so the learner's graph holds
     it whole: the eager pass runs under the sync debug mode's "error",
+    its held pairs through the pair kernels,
     and ``Replayed`` captures it, then replays the held experts' rows
     that the eager pass reports."""
     from repro_torch.train.train_step import (Replayed, TrainConfig,
@@ -1151,6 +1300,7 @@ def test_a_mellum_pass_reads_nothing_back_to_the_host(cuda):
     fn = make_grad_fn(cfg, tc)
     fn(params, batch)
     torch.cuda.synchronize()
+    before = _launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         loss, aux, _ = fn(params, batch)
@@ -1158,6 +1308,9 @@ def test_a_mellum_pass_reads_nothing_back_to_the_host(cuda):
         torch.cuda.set_sync_debug_mode(0)
     rows = aux["moe_rows"].clone()
     assert rows.shape == (cfg.num_layers, cfg.num_experts_held)
+    # The held pairs went through the pair kernels, forward and backward.
+    run = _since(before)
+    assert all(run[k] for k in mp.launches), run
     replayed = Replayed(fn, tc.num_microbatches)
     for _ in range(3):
         r_loss, r_aux, _ = replayed(params, batch)
